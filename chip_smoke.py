@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive lighthouse_tpu_torch's main path on one NVIDIA GPU and hold every
-kernel of that path to its plain PyTorch version.
+"""Drive lighthouse_tpu_torch's main paths on one NVIDIA GPU and hold every
+kernel of those paths to its plain PyTorch version.
 
     python3 chip_smoke.py [--seed S]
 
@@ -10,16 +10,28 @@ each, any failure ends the run with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, device count;
-2. build: seconds, registers and spills of each kernel;
+2. build: every kernel source at once (one nvcc each, in parallel), with
+   seconds, registers and spills of each kernel;
 3. kernel checks: the SHA-256 kernel byte-equal to its plain version on the
-   card and to hashlib, its time, the plain version's time and its bound;
+   card and to hashlib; then each BLS kernel (G1/G2 ladders, segment sums
+   and affine conversion, the G2 subgroup check, the multi-pairing,
+   hash-to-G2) equal to its plain version at the BLS main path's shapes;
+   each with its time, the plain version's time and its bound;
 4. main path: the state-root stage of block import. A mainnet-preset Deneb
    BeaconState with 1,000,000 validators is built from ``--seed``,
    given the tree-states representation, and rooted cold through
    ``BeaconState.hash_tree_root()``; then 8 block-sized
    mutations are each re-rooted incrementally. The cold root must equal a
    root folded without the kernel through the host hash lanes, and each
-   incremental root the root of the same state with a fresh cache.
+   incremental root the root of the same state with a fresh cache;
+5. BLS main path: one mainnet Deneb block's signature sets over that
+   registry (proposal, RANDAO, 128 attestations of about 488 signers, the
+   sync aggregate: 131 sets, about 63,000 pubkeys) verified five times
+   through ``crypto.bls.verify_signature_sets`` under the ``cuda`` backend,
+   each time with the signatures decompressed anew (pubkeys cached);
+   verdicts on the block, on four altered batches and on a 64-set gossip
+   batch equal to the port's host backend's; each chunk's H(m), sum r_i
+   sig_i and per-message sum r_i aggpk_i equal to the host oracle's.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -40,7 +52,11 @@ import numpy as np
 import torch
 
 from lighthouse_tpu_torch.beacon_chain.chain import _make_persistent
+from lighthouse_tpu_torch.ops import bls381 as k_g
+from lighthouse_tpu_torch.ops import bls381_htc as k_htc
+from lighthouse_tpu_torch.ops import bls381_pairing as k_pair
 from lighthouse_tpu_torch.ops import sha256 as k_sha256
+from lighthouse_tpu_torch.ops.cuda_build import ptxas_usage
 from lighthouse_tpu_torch.ssz.merkle import mix_in_length, next_pow_of_two
 from lighthouse_tpu_torch.types import MainnetEthSpec, build_types
 from lighthouse_tpu_torch.utils.hash import ZERO_HASHES
@@ -56,6 +72,36 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # The least 32-bit operations SHA-256 of one 64-byte message needs,
 # whatever the code (derived in csrc/sha256.cu's header comment).
 SHA256_MIN_OPS = 2300
+# 32-bit integer multiply results per second: 64 per clock per SM for
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput: 32-bit integer multiply and multiply-add), 132
+# SMs at the 1.98 GHz boost clock.
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
+# The least 32-bit multiplies of one 12-limb Montgomery multiplication
+# (CIOS, csrc/bls381_field.cuh): 144 limb products of a*b and 144 of m*p,
+# each a low and a high half, and 12 low halves m = t0 * n'.
+BLS_FQ_MUL_MIN_OPS = 2 * 144 + 2 * 144 + 12
+# Least Fq multiplications of each operation, counted from the cheapest
+# known way to compute it, not from the way the kernels compute it
+# (derivations in the headers of csrc/bls381_{g,pairing,htc}.cu). An Fq2
+# product is 3 Fq products, an Fq2 square 2; a power to a fixed exponent e
+# is counted at the floor of any addition chain for e, ceil(log2 e) steps.
+BLS_FQ_MULS = {
+    "g1_dbl": 7,  # 2M + 5S (a = 0)
+    "g1_mdbl": 6,  # 1M + 5S, an affine input
+    "g1_add": 16,  # 11M + 5S
+    "g1_madd": 11,  # 7M + 4S, an affine addend
+    "g2_dbl": 16,
+    "g2_add": 43,
+    "fq_inv": 381,  # a^(p-2)
+    "fq2_inv": 385,  # the norm (2), an Fq inverse, 2 products
+    "subgroup_check": 1166,  # per point
+    "miller_steps": 1780,  # per pair: 63 doubling steps (25), 5 addition steps (41)
+    "line": 39,  # a sparse line product, 13 Fq2 products
+    "miller_sqr": 62 * 36,  # f^2 once per step, shared by all pairs
+    "final_exp": 7182,
+    "hash_to_g2": 4403,  # per message
+}
 
 # The main path's size: a mainnet registry and a run of block imports.
 N_VALIDATORS = 1_000_000
@@ -224,6 +270,222 @@ def block_update(state, E, rng: np.random.Generator) -> None:
 
 
 # ---------------------------------------------------------------------------
+# BLS test material from a seed (also used by the CPU and card tests)
+# ---------------------------------------------------------------------------
+
+
+def bls_scalars(rng: np.random.Generator, n: int, bits: int = 64) -> list[int]:
+    """n nonzero scalars below 2^bits."""
+    words = rng.integers(0, 2**32, (n, -(-bits // 32)), dtype=np.uint64).tolist()
+    out = []
+    for w in words:
+        v = sum(int(x) << (32 * i) for i, x in enumerate(w)) % (1 << bits)
+        out.append(v or 1)
+    return out
+
+
+def bls_g1_points(rng: np.random.Generator, n: int) -> list:
+    """n Jacobian G1 points [k]G1 with seeded k, with Z != 1."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, G1_GEN, pt_add, pt_mul
+
+    return [pt_add(FQ, pt_mul(FQ, G1_GEN, k), G1_GEN) for k in bls_scalars(rng, n, 255)]
+
+
+def bls_g2_points(rng: np.random.Generator, n: int) -> list:
+    """n Jacobian G2 points [k]G2 with seeded k, with Z != 1."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ2, G2_GEN, pt_add, pt_mul
+
+    return [pt_add(FQ2, pt_mul(FQ2, G2_GEN, k), G2_GEN) for k in bls_scalars(rng, n, 255)]
+
+
+def bls_twist_point_outside_subgroup(rng: np.random.Generator):
+    """An affine point of the twist E'(Fq2) that is not in G2: a seeded
+    x whose x^3 + 4(1+u) is a square, with no cofactor clearing."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import B2, FQ2, g2_in_subgroup
+    from lighthouse_tpu_torch.crypto.bls12_381 import fields as F
+
+    while True:
+        x = tuple(int(v) % F.P for v in bls_scalars(rng, 2, 384))
+        y = F.f2_sqrt(F.f2_add(F.f2_mul(F.f2_sqr(x), x), B2))
+        if y is not None and not g2_in_subgroup((x, y, FQ2.one)):
+            return (x, y)
+
+
+def _g1_affine_bytes(x: int, y: int) -> bytes:
+    """Compressed G1 encoding of an affine point (curve.py g1_to_bytes
+    without its inversion)."""
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import P
+
+    out = bytearray(x.to_bytes(48, "big"))
+    out[0] |= 0x80 | (0x20 if y > (P - 1) // 2 else 0)
+    return bytes(out)
+
+
+def bls_keys(rng: np.random.Generator, count: int):
+    """`count` seeded secret keys, their affine public points and their
+    compressed pubkeys (one G1 fixed-base multiplication each, one batch
+    inversion for all)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, R, batch_to_affine, g1_gen_mul
+
+    sks = [s % R or 1 for s in bls_scalars(rng, count, 255)]
+    affs = batch_to_affine(FQ, [g1_gen_mul(sk) for sk in sks])
+    return sks, affs, [_g1_affine_bytes(x, y) for x, y in affs]
+
+
+def bls_sign(sk_sum: int, message: bytes) -> bytes:
+    """The aggregate signature of the keys summing to `sk_sum` over
+    `message`: [sk_sum] H(m) (one G2 multiplication)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ2, R, g2_to_bytes, hash_to_g2, pt_mul
+
+    return g2_to_bytes(pt_mul(FQ2, hash_to_g2(message), sk_sum % R))
+
+
+def bls_block(state, types, E, spec, seed: int) -> dict:
+    """One mainnet Deneb block's signature sets over `state`'s registry, as
+    BlockSignatureVerifier builds them: the block proposal and RANDAO sets
+    of a seeded proposer, 128 indexed attestations (one per committee of
+    the two previous slots; committees drawn as disjoint sets from one
+    seeded permutation of the active registry, active / 32 / 64 members
+    each, each with its own AttestationData) and the sync aggregate of the
+    512-member current sync committee with ~2% of bits clear.
+
+    The signers' pubkeys become real keys from seeded secret keys, written
+    into the registry and kept decompressed in the port's pubkey cache (as
+    a node keeps its validator pubkey cache); each aggregate signature is
+    [sum of the signers' keys] H(m). Returns the sets and the material the
+    verdict cases need."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_processing import altair
+    from lighthouse_tpu_torch.state_processing import signature_sets as ss
+    from lighthouse_tpu_torch.state_processing.accessors import get_block_root_at_slot, get_domain
+    from lighthouse_tpu_torch.types.chain_spec import Domain, compute_signing_root
+
+    rng = np.random.default_rng(seed)
+    T = types.types_for_fork("deneb")
+    slot = int(state.slot)
+    epoch = slot // E.SLOTS_PER_EPOCH
+    act = np.fromiter((int(v.activation_epoch) for v in state.validators), np.uint64, len(state.validators))
+    ext = np.fromiter((int(v.exit_epoch) for v in state.validators), np.uint64, len(state.validators))
+    active = np.nonzero((act <= epoch) & (epoch < ext))[0]
+    size = len(active) // (E.SLOTS_PER_EPOCH * 64)
+    perm = rng.permutation(active)
+    committees = [np.sort(perm[c * size : (c + 1) * size]) for c in range(128)]
+    sync_idx = rng.choice(active, E.SYNC_COMMITTEE_SIZE, replace=False)
+    proposer = int(perm[128 * size])
+
+    signers = np.unique(np.concatenate(committees + [sync_idx, [proposer]]))
+    t0 = time.perf_counter()
+    sks, affs, pks = bls_keys(rng, len(signers))
+    keygen_s = time.perf_counter() - t0
+    sk_of = dict(zip(signers.tolist(), sks))
+    for i, (x, y), pk in zip(signers.tolist(), affs, pks):
+        state.validators.mutate(i).pubkey = pk
+        ss._PUBKEY_CACHE.setdefault(pk, bls.PublicKey(pk, (x, y, 1)))
+    sync_pks = [state.validators[int(i)].pubkey for i in sync_idx]
+    state.current_sync_committee = types.SyncCommittee(
+        pubkeys=sync_pks,
+        aggregate_pubkey=bls.aggregate_pubkeys([ss.pubkey_from_bytes(pk) for pk in sync_pks]).to_bytes(),
+    )
+
+    t0 = time.perf_counter()
+    atts = []
+    for c, members in enumerate(committees):
+        a_slot = slot - 2 + c // 64
+        target_epoch = a_slot // E.SLOTS_PER_EPOCH
+        data = types.AttestationData(
+            slot=a_slot,
+            index=c % 64,
+            beacon_block_root=get_block_root_at_slot(state, a_slot, E),
+            source=state.current_justified_checkpoint,
+            target=types.Checkpoint(
+                epoch=target_epoch,
+                root=get_block_root_at_slot(state, target_epoch * E.SLOTS_PER_EPOCH, E),
+            ),
+        )
+        domain = get_domain(state, Domain.BEACON_ATTESTER, target_epoch, spec, E)
+        msg = compute_signing_root(data.hash_tree_root(), domain)
+        sk_sum = sum(sk_of[int(i)] for i in members)
+        atts.append(
+            types.IndexedAttestation(
+                attesting_indices=members.tolist(), data=data, signature=bls_sign(sk_sum, msg)
+            )
+        )
+    bits = (rng.random(E.SYNC_COMMITTEE_SIZE) >= 0.02).tolist()
+    sync_msg = compute_signing_root(
+        get_block_root_at_slot(state, slot - 1, E),
+        get_domain(state, Domain.SYNC_COMMITTEE, (slot - 1) // E.SLOTS_PER_EPOCH, spec, E),
+    )
+    sync_sig = bls_sign(sum(sk_of[int(i)] for i, b in zip(sync_idx, bits) if b), sync_msg)
+    sk_p = sk_of[proposer]
+    randao_msg = compute_signing_root(
+        epoch.to_bytes(8, "little").ljust(32, b"\x00"), get_domain(state, Domain.RANDAO, epoch, spec, E)
+    )
+    block = T.BeaconBlock(
+        slot=slot,
+        proposer_index=proposer,
+        parent_root=get_block_root_at_slot(state, slot - 1, E),
+        state_root=rng.bytes(32),
+        body=T.BeaconBlockBody(
+            randao_reveal=bls_sign(sk_p, randao_msg),
+            graffiti=rng.bytes(32),
+            sync_aggregate=types.SyncAggregate(sync_committee_bits=bits, sync_committee_signature=sync_sig),
+        ),
+    )
+    block_msg = compute_signing_root(
+        block.hash_tree_root(), get_domain(state, Domain.BEACON_PROPOSER, epoch, spec, E)
+    )
+    signed = T.SignedBeaconBlock(message=block, signature=bls_sign(sk_p, block_msg))
+    sign_s = time.perf_counter() - t0
+
+    sets = [
+        ss.block_proposal_signature_set(state, signed, None, spec, E),
+        ss.randao_signature_set(state, block, spec, E),
+        *(ss.indexed_attestation_signature_set(state, a, spec, E) for a in atts),
+        altair.sync_aggregate_signature_set(state, block.body.sync_aggregate, slot, spec, E),
+    ]
+    # (b) attestation 5 signed by its own committee over another message
+    other_msg = compute_signing_root(
+        types.AttestationData(
+            slot=atts[5].data.slot,
+            index=atts[5].data.index,
+            beacon_block_root=rng.bytes(32),
+            source=atts[5].data.source,
+            target=atts[5].data.target,
+        ).hash_tree_root(),
+        get_domain(state, Domain.BEACON_ATTESTER, int(atts[5].data.target.epoch), spec, E),
+    )
+    wrong_msg_sig = bls_sign(sum(sk_of[int(i)] for i in committees[5]), other_msg)
+    # (e) a gossip batch: 64 single-signer attestations of one subnet, 60
+    # over committee 0's data and 4 over a different head
+    fork_data = types.AttestationData(
+        slot=atts[0].data.slot,
+        index=atts[0].data.index,
+        beacon_block_root=rng.bytes(32),
+        source=atts[0].data.source,
+        target=atts[0].data.target,
+    )
+    gossip = []
+    for j, i in enumerate(committees[0][:64].tolist()):
+        data = atts[0].data if j < 60 else fork_data
+        msg = compute_signing_root(
+            data.hash_tree_root(),
+            get_domain(state, Domain.BEACON_ATTESTER, int(data.target.epoch), spec, E),
+        )
+        ia = types.IndexedAttestation(attesting_indices=[i], data=data, signature=bls_sign(sk_of[i], msg))
+        gossip.append(ss.indexed_attestation_signature_set(state, ia, spec, E))
+    return {
+        "sets": sets,
+        "gossip": gossip,
+        "wrong_msg_sig": wrong_msg_sig,
+        "signers": len(signers),
+        "committee_size": size,
+        "active": len(active),
+        "keygen_s": keygen_s,
+        "sign_s": sign_s,
+    }
+
+
+# ---------------------------------------------------------------------------
 # The kernel-free oracle: a state root folded through the host hash lanes
 # ---------------------------------------------------------------------------
 
@@ -361,23 +623,30 @@ def _sass_instructions(so_path: str, kernel: str) -> int | None:
     return count or None
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel source at once (one nvcc each, in parallel) and
+    report each one's seconds, registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = {"bls381_g": k_g.LIB, "bls381_pairing": k_pair.LIB, "bls381_htc": k_htc.LIB}
     t0 = time.perf_counter()
-    k_sha256.load_kernel()
-    info = k_sha256.BUILD_INFO
-    out = {
-        "phase": "build",
-        "seconds": time.perf_counter() - t0,
-        "kernels": {
-            "sha256_rows": {
-                "so": info["so"],
-                "built_now": info["built"],
-                **k_sha256.ptxas_usage(info["ptxas"]),
-                "sass_instructions": _sass_instructions(info["so"], "sha256_rows_kernel"),
-            }
-        },
-    }
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        futs = [pool.submit(k_sha256.load_kernel)] + [pool.submit(lib.load) for lib in libs.values()]
+        for f in futs:
+            f.result()
+    out = {"phase": "build", "seconds": time.perf_counter() - t0, "sources": {}}
+    for name, lib in {"sha256": k_sha256.LIB, **libs}.items():
+        out["sources"][name + ".cu"] = {
+            "so": lib.info["so"],
+            "built_now": lib.info["built"],
+            "build_s": lib.info["build_s"],
+            "kernels": ptxas_usage(lib.info["ptxas"]),
+        }
+    out["sources"]["sha256.cu"]["sass_instructions"] = _sass_instructions(
+        k_sha256.LIB.info["so"], "sha256_rows_kernel"
+    )
     emit(out)
+    return out
 
 
 def phase_kernel_checks(seed: int) -> dict:
@@ -453,6 +722,371 @@ def phase_kernel_checks(seed: int) -> dict:
     return out
 
 
+def _ladder_fq_muls(scalars, group: str) -> int:
+    d, a = BLS_FQ_MULS[group + "_dbl"], BLS_FQ_MULS[group + "_add"]
+    return sum(d * (k.bit_length() - 1) + a * (bin(k).count("1") - 1) for k in scalars if k)
+
+
+def _bound(fq_muls: int, nbytes: int) -> dict:
+    ops_s = fq_muls * BLS_FQ_MUL_MIN_OPS / INT32_MUL_PER_S
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return {
+        "fq_muls": fq_muls,
+        "bound_ms_ops": ops_s * 1e3,
+        "bound_ms_bytes": bytes_s * 1e3,
+        "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+    }
+
+
+def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) if got.numel() else 0
+
+
+def _plain_ms(fn):
+    """(result, ms) of one call of a plain version, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_bls_kernel_checks(seed: int) -> dict:
+    """Each BLS kernel at the main path's shapes (32 lanes; [32, 512] for
+    the pubkey sums; 33 pairs), equal to its plain version on the card,
+    with its time, its plain version's time and its bound."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, G1_GEN, batch_to_affine, inf, pt_add, pt_neg, to_affine
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    lanes, k = 32, 512
+    g1 = bls_g1_points(rng, lanes)
+    g2 = bls_g2_points(rng, lanes + 1)
+    scalars = bls_scalars(rng, lanes)
+    kt = k_g.scalars_to_tensor(scalars).to(dev)
+    # pubkey grid: rows of 488 affine points (Z = 1, as decompressed
+    # pubkeys are), the first repeated, and 24 pads
+    rows = []
+    for i in range(lanes):
+        pt, row = g1[i], []
+        for _ in range(488):
+            row.append(pt)
+            pt = pt_add(FQ, pt, G1_GEN)
+        row[1] = row[0]
+        row = [(x, y, 1) for x, y in batch_to_affine(FQ, row)]
+        rows.append(row + [inf(FQ)] * (k - 488))
+    grid = torch.from_numpy(k_g.g1_to_limbs([q for r in rows for q in r]).reshape(lanes, k, 3, 12)).to(dev)
+    g1_t = torch.from_numpy(k_g.g1_to_limbs(g1)).to(dev)
+    g2_t = torch.from_numpy(k_g.g2_to_limbs(g2)).to(dev)
+    g2_row = g2_t[:lanes].reshape(1, lanes, 3, 2, 12).contiguous()
+    g1_aff = [to_affine(FQ, q) for q in g1] + [to_affine(FQ, pt_neg(FQ, G1_GEN))]
+    g2_aff = [to_affine(FQ2, q) for q in g2]
+    p_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g1_aff for v in a]).reshape(-1, 2, 12)).to(dev)
+    q_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g2_aff for c in a for v in c]).reshape(-1, 2, 2, 12)).to(dev)
+    no_inf = torch.zeros(lanes + 1, dtype=torch.bool, device=dev)
+    msgs = [rng.bytes(32) for _ in range(lanes)]
+    u = torch.from_numpy(k_htc.messages_to_field(msgs)).to(dev)
+
+    W = 8  # bytes per limb as the card moves them
+    cases = {
+        "g1_scalar_mul": (
+            lambda: k_g.scalar_mul("g1", g1_t, kt),
+            lambda: k_g.scalar_mul_plain("g1", g1_t, kt),
+            _ladder_fq_muls(scalars, "g1"),
+            2 * g1_t.numel() * W + lanes * 8,
+        ),
+        "g2_scalar_mul": (
+            lambda: k_g.scalar_mul("g2", g2_t[:lanes].contiguous(), kt),
+            lambda: k_g.scalar_mul_plain("g2", g2_t[:lanes].contiguous(), kt),
+            _ladder_fq_muls(scalars, "g2"),
+            2 * g2_t[:lanes].numel() * W + lanes * 8,
+        ),
+        "g1_segment_sum": (
+            lambda: k_g.segment_sum("g1", grid),
+            lambda: k_g.segment_sum_plain("g1", grid),
+            # a row's repeated pair is an affine doubling, then 486 mixed additions
+            lanes * (BLS_FQ_MULS["g1_mdbl"] + 486 * BLS_FQ_MULS["g1_madd"]),
+            grid.numel() * W + lanes * 36 * W,
+        ),
+        "g2_segment_sum": (
+            lambda: k_g.segment_sum("g2", g2_row),
+            lambda: k_g.segment_sum_plain("g2", g2_row),
+            (lanes - 1) * BLS_FQ_MULS["g2_add"],
+            g2_row.numel() * W + 72 * W,
+        ),
+        "g1_to_affine": (
+            lambda: k_g.to_affine("g1", g1_t),
+            lambda: k_g.to_affine_plain("g1", g1_t),
+            # one batch inversion: 3 products per further lane, 4 per lane
+            BLS_FQ_MULS["fq_inv"] + 3 * (lanes - 1) + 4 * lanes,
+            g1_t.numel() * W * 5 // 3,
+        ),
+        "g2_to_affine": (
+            lambda: k_g.to_affine("g2", g2_t),
+            lambda: k_g.to_affine_plain("g2", g2_t),
+            BLS_FQ_MULS["fq2_inv"] + 9 * lanes + 11 * (lanes + 1),
+            g2_t.numel() * W * 5 // 3,
+        ),
+        "g2_subgroup_check": (
+            lambda: k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes]),
+            lambda: k_pair.g2_subgroup_check_plain(q_aff[:lanes], no_inf[:lanes]),
+            lanes * BLS_FQ_MULS["subgroup_check"],
+            q_aff[:lanes].numel() * W + 2 * lanes,
+        ),
+        "multi_pairing": (
+            lambda: k_pair.multi_pairing(p_aff, no_inf, q_aff, no_inf),
+            lambda: k_pair.multi_pairing_plain(p_aff, no_inf, q_aff, no_inf),
+            (lanes + 1) * BLS_FQ_MULS["miller_steps"]
+            + (68 * (lanes + 1) - 1) * BLS_FQ_MULS["line"]
+            + BLS_FQ_MULS["miller_sqr"]
+            + BLS_FQ_MULS["final_exp"],
+            (p_aff.numel() + q_aff.numel() + 144) * W + 2 * (lanes + 1),
+        ),
+        "hash_to_g2": (
+            lambda: k_htc.hash_to_g2(u),
+            lambda: k_htc.hash_to_g2_plain(u),
+            lanes * BLS_FQ_MULS["hash_to_g2"],
+            u.numel() * W + lanes * 72 * W,
+        ),
+    }
+    out = {"phase": "bls_kernel_checks", "lanes": lanes, "segment": [lanes, k], "pairs": lanes + 1, "kernels": {}}
+    for name, (kernel, plain, fq_muls, nbytes) in cases.items():
+        got = kernel()
+        want, plain_ms = _plain_ms(plain)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel differs from its plain version (max_abs_err {err})")
+        ms = _time_ms(kernel, reps=3, warmup=1)
+        out["kernels"][name] = {
+            "equal_plain": True,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "library_ms": None,
+            **_bound(fq_muls, nbytes),
+        }
+    # the stage values the checks above used are themselves right
+    sub = k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes])
+    if not bool(sub.all()):
+        raise AssertionError("g2_subgroup_check rejected subgroup points")
+    emit(out)
+    return out
+
+
+def phase_bls_main_path(state, types, E, seed: int) -> dict:
+    """The BLS batch verifier on one mainnet Deneb block at `state`'s
+    registry, through crypto.bls.verify_signature_sets under the `cuda`
+    backend; verdicts held to the port's host backend, stage values to the
+    host oracle."""
+    import random
+    import statistics
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls12_381 import (
+        FQ,
+        FQ2,
+        g2_affine_to_bytes,
+        g2_from_bytes,
+        g2_to_bytes,
+        hash_to_g2,
+        msm,
+        to_affine,
+    )
+    from lighthouse_tpu_torch.ops.bls381_verify import verify_signature_sets_device_full
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+
+    t0 = time.perf_counter()
+    blk = bls_block(state, types, E, mainnet_spec(), seed)
+    sets = blk["sets"]
+    setup_s = time.perf_counter() - t0
+    n_pubkeys = sum(len(s.pubkeys) for s in sets)
+    chunk = bls.DEFAULT_DEVICE_CHUNK
+
+    # warm the pubkey decompression and limb caches, as a node's validator
+    # pubkey cache has them; a new block's signatures are not cached
+    bls.set_backend("cuda")
+    if not bls.verify_signature_sets(sets, random.Random(seed)):
+        raise AssertionError("(a) the cuda backend rejected the valid block")
+
+    def fresh_signatures():
+        bls._SIG_CACHE.clear()
+        return [bls.SignatureSet(bls.Signature(s.signature.to_bytes()), s.pubkeys, s.message) for s in sets]
+
+    # the main path: counts at zero just before, read just after; each
+    # verify decompresses the block's signatures anew
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_bls_counts()
+    times = []
+    for rep in range(5):
+        block = fresh_signatures()
+        t0 = time.perf_counter()
+        ok = bls.verify_signature_sets(block, random.Random(seed + rep))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not ok:
+            raise AssertionError(f"(a) the cuda backend rejected the valid block (run {rep})")
+    counts = bls_counts()
+    peak = torch.cuda.max_memory_allocated()
+    block = fresh_signatures()
+    t0 = time.perf_counter()
+    for s in block:
+        s.signature.point()
+    sig_decompress_s = time.perf_counter() - t0
+    block = fresh_signatures()
+    profile = _profile_block(lambda: bls.verify_signature_sets(block, random.Random(seed)))
+    missing = [n for n in BLS_KERNELS if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"the BLS main path launched no {missing}")
+
+    # verdicts (a)-(e), cuda against host
+    def both(name, batch, want):
+        bls.set_backend("cuda")
+        got_cuda = bls.verify_signature_sets(batch, random.Random(seed))
+        bls.set_backend("host")
+        t0 = time.perf_counter()
+        got_host = bls.verify_signature_sets(batch, random.Random(seed))
+        host_s = time.perf_counter() - t0
+        if got_cuda is not want or got_host is not want:
+            raise AssertionError(f"verdict {name}: cuda {got_cuda}, host {got_host}, expected {want}")
+        return host_s
+
+    def replaced(i, sig):
+        out = list(sets)
+        out[i] = bls.SignatureSet(sig, sets[i].pubkeys, sets[i].message)
+        return out
+
+    rng = np.random.default_rng(seed + 3)
+    host_block_s = both("(a) block", sets, True)
+    both("(b) a signature over another message", replaced(2 + 5, bls.Signature(blk["wrong_msg_sig"])), False)
+    x, y = bls_twist_point_outside_subgroup(rng)
+    both("(c) a signature outside G2", replaced(2 + 7, bls.Signature(g2_affine_to_bytes((x, y)))), False)
+    both("(d) an infinity signature", replaced(2 + 9, bls.Signature(bls.INFINITY_SIGNATURE)), False)
+    both("(e) a gossip batch of 64", blk["gossip"], True)
+    bls.set_backend("cuda")
+
+    # stage values against the host oracle, with the same scalars
+    rand = random.Random(seed)
+    stages: list = []
+    for i in range(0, len(sets), chunk):
+        if not verify_signature_sets_device_full(sets[i : i + chunk], rand, stages=stages):
+            raise AssertionError("the stage run rejected the valid block")
+    n_msgs = 0
+    for c, st in enumerate(stages):
+        part = sets[c * chunk : (c + 1) * chunk]
+        for m, hm in zip(st["messages"], st["hm"]):
+            want = g2_to_bytes(hash_to_g2(m))
+            got = g2_affine_to_bytes(_g2_affine(hm))
+            if got != want:
+                raise AssertionError(f"chunk {c}: H(m) differs from the host hash_to_g2")
+            n_msgs += 1
+        sig_sum = to_affine(FQ2, msm(FQ2, [g2_from_bytes(s.signature.to_bytes()) for s in part], st["scalars"]))
+        if _g2_affine(st["agg_sig"]) != sig_sum:
+            raise AssertionError(f"chunk {c}: sum r_i sig_i differs from the host")
+        for m, got in zip(st["messages"], st["msg_pk"]):
+            idx = [j for j, s in enumerate(part) if s.message == m]
+            aggs = [bls.aggregate_pubkeys(part[j].pubkeys).point() for j in idx]
+            want = to_affine(FQ, msm(FQ, aggs, [st["scalars"][j] for j in idx]))
+            if tuple(k_g.fq_from_limbs(got)) != want:
+                raise AssertionError(f"chunk {c}: a message's sum r_i aggpk_i differs from the host")
+    med = statistics.median(times)
+    out = {
+        "phase": "bls_main_path",
+        "preset": E.NAME,
+        "fork": "deneb",
+        "validators": len(state.validators),
+        "active": blk["active"],
+        "committee_size": blk["committee_size"],
+        "sets": len(sets),
+        "pubkeys": n_pubkeys,
+        "messages": len({s.message for s in sets}),
+        "chunks": [len(sets[i : i + chunk]) for i in range(0, len(sets), chunk)],
+        "signers": blk["signers"],
+        "keygen_s": blk["keygen_s"],
+        "sign_s": blk["sign_s"],
+        "setup_s": setup_s,
+        "verify_s": times,
+        "verify_median_s": med,
+        "sig_decompress_s": sig_decompress_s,
+        "sets_per_s": len(sets) / med,
+        "pubkeys_per_s": n_pubkeys / med,
+        "launches": {n: counts[n] for n in BLS_KERNELS},
+        "launches_per_block": {n: counts[n] / 5 for n in BLS_KERNELS},
+        "max_memory_allocated_bytes": peak,
+        "profile": profile,
+        "host_backend_block_s": host_block_s,
+        "verdicts_equal_host": ["(a)", "(b)", "(c)", "(d)", "(e)"],
+        "hm_equal_host": n_msgs,
+        "stage_sums_equal_host_chunks": len(stages),
+    }
+    emit(out)
+    return out
+
+
+def _profile_block(fn) -> dict:
+    """One more block verify under torch.profiler: the card's kernel time
+    (the sum of device self times) against the host clock, and the kernels
+    that take it. Run after the main path's counts are read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ok = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the profiled block verify rejected the valid block")
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "wall_s": wall,
+        "device_kernel_ms": device_ms if by_name else None,
+        "device_busy_share": device_ms / (wall * 1e3) if by_name else None,
+        "kernels_ms": {k[:60]: v for k, v in top},
+    }
+
+
+def _g2_affine(limbs) -> tuple:
+    v = k_g.fq_from_limbs(limbs)
+    return ((v[0], v[1]), (v[2], v[3]))
+
+
+BLS_KERNELS = {
+    # name: (module, source, the JAX function it replaces)
+    "g1_scalar_mul": (k_g, "bls381_g.cu", "lighthouse_tpu/ops/bls381.py:481"),
+    "g2_scalar_mul": (k_g, "bls381_g.cu", "lighthouse_tpu/ops/bls381.py:487"),
+    "g1_segment_sum": (k_g, "bls381_g.cu", "lighthouse_tpu/ops/bls381_verify.py:103"),
+    "g2_segment_sum": (k_g, "bls381_g.cu", "lighthouse_tpu/ops/bls381_verify.py:108"),
+    "g1_to_affine": (k_g, "bls381_g.cu", "lighthouse_tpu/ops/bls381_verify.py:122"),
+    "g2_to_affine": (k_g, "bls381_g.cu", "lighthouse_tpu/ops/bls381_verify.py:138"),
+    "g2_subgroup_check": (k_pair, "bls381_pairing.cu", "lighthouse_tpu/ops/bls381_pairing.py:418"),
+    "multi_pairing": (k_pair, "bls381_pairing.cu", "lighthouse_tpu/ops/bls381_pairing.py:340"),
+    "hash_to_g2": (k_htc, "bls381_htc.cu", "lighthouse_tpu/ops/bls381_htc.py:311"),
+}
+
+
+def bls_counts() -> dict:
+    return {n: mod.COUNTS[n] for n, (mod, _, _) in BLS_KERNELS.items()}
+
+
+def reset_bls_counts() -> None:
+    for mod in (k_g, k_pair, k_htc):
+        mod.reset_counts()
+
+
 def phase_main_path(n: int, updates: int, seed: int) -> dict:
     E = MainnetEthSpec
     types = build_types(E)
@@ -523,7 +1157,7 @@ def phase_main_path(n: int, updates: int, seed: int) -> dict:
         "max_memory_allocated_bytes": peak_bytes,
     }
     emit(out)
-    return out
+    return out, state
 
 
 def main(argv=None) -> int:
@@ -551,7 +1185,9 @@ def main(argv=None) -> int:
     )
     phase_build()
     checks = phase_kernel_checks(args.seed)
-    main_path = phase_main_path(N_VALIDATORS, UPDATES, args.seed)
+    bls_checks = phase_bls_kernel_checks(args.seed)
+    main_path, state = phase_main_path(N_VALIDATORS, UPDATES, args.seed)
+    bls_path = phase_bls_main_path(state, build_types(MainnetEthSpec), MainnetEthSpec, args.seed)
 
     emit(
         {
@@ -569,6 +1205,22 @@ def main(argv=None) -> int:
                     "bound_by": checks["bound_by"],
                     "library_ms": None,
                 }
+            ]
+            + [
+                {
+                    "name": name,
+                    "route": "cuda",
+                    "source": f"lighthouse_tpu_torch/csrc/{src}",
+                    "replaces": replaces,
+                    "launches": bls_path["launches"][name],
+                    "max_abs_err": bls_checks["kernels"][name]["max_abs_err"],
+                    "ms": bls_checks["kernels"][name]["ms"],
+                    "plain_ms": bls_checks["kernels"][name]["plain_ms"],
+                    "bound_ms": bls_checks["kernels"][name]["bound_ms"],
+                    "bound_by": bls_checks["kernels"][name]["bound_by"],
+                    "library_ms": None,
+                }
+                for name, (_, src, replaces) in BLS_KERNELS.items()
             ]
         }
     )

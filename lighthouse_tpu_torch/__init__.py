@@ -6,10 +6,13 @@ JAX package is a kernel written by hand for Hopper (``csrc/``), bound to
 PyTorch, with a plain PyTorch version beside it. The port imports nothing
 of JAX or of lighthouse_tpu; its tests hold it to that package.
 
-Ported so far (slice 1): the SSZ layer and consensus types up to
+Ported so far: the SSZ layer and consensus types up to
 ``BeaconState.hash_tree_root()``, on the SHA-256 kernel
-(``ops/sha256.py``, ``csrc/sha256.cu``). The device policy is in
-``device.py``: kernels run on ``cuda`` unless the caller asks for the CPU.
+(``ops/sha256.py``, ``csrc/sha256.cu``; slice 1); BLS batch signature
+verification, ``crypto.bls.verify_signature_sets`` under the ``cuda``
+backend, on the BLS12-381 kernels (``ops/bls381*.py``,
+``csrc/bls381_*``; slice 2). The device policy is in ``device.py``:
+kernels run on ``cuda`` unless the caller asks for the CPU.
 """
 
 from .device import default_device, resolve_device, set_default_device

@@ -20,37 +20,22 @@ version ``sha256_rows_plain``. A failed build or launch raises.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import re
-import subprocess
-import threading
-import time
-from pathlib import Path
-
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..utils.sha256_batch import _IV, _K, _KW_PAD, hash_rows_hashlib
+from . import cuda_build
+from .cuda_build import CudaLibrary
 
 # Tree levels with at most this many parent nodes finish on host.
 _HOST_TOP = 1 << 8
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sha256.cu"
-BUILD_DIR = _PKG / "build"
+LIB = CudaLibrary("sha256.cu", {"sha256_rows": ("p", "p", "i64", "p")})
 
 # Kernel launches and rows hashed on the card, counted where the kernel
 # launches and nowhere else.
 COUNTS = {"launches": 0, "rows": 0}
-
-# Filled by the first load: {"so", "built", "build_s", "ptxas"}.
-BUILD_INFO: dict = {}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -58,74 +43,18 @@ def reset_counts() -> None:
     COUNTS["rows"] = 0
 
 
-# ---------------------------------------------------------------------------
-# Kernel build and binding
-# ---------------------------------------------------------------------------
+SOURCE = LIB.source
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(f"nvcc not found at {path}: set CUDA_HOME")
-    return str(path)
-
-
-def load_kernel() -> ctypes.CDLL:
+def load_kernel():
     """The kernel's shared library, built on first use."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = _build_and_load()
-    return _lib
-
-
-def _build_and_load() -> ctypes.CDLL:
-    key = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"sha256-{key}.so"
-    log = so.with_suffix(".ptxas.txt")
-    built = not so.exists()
-    t0 = time.perf_counter()
-    if built:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(),
-            "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v",
-            "-o", str(tmp), str(SOURCE),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
-            )
-        log.write_text(proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.sha256_rows.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.sha256_rows.restype = ctypes.c_int
-    BUILD_INFO.update(
-        so=str(so),
-        built=built,
-        build_s=time.perf_counter() - t0,
-        ptxas=log.read_text() if log.exists() else "",
-    )
-    return lib
+    return LIB.load()
 
 
 def ptxas_usage(ptxas_log: str) -> dict:
     """Registers and spill bytes of the kernel from `nvcc -Xptxas -v`."""
-    regs = re.search(r"Used (\d+) registers", ptxas_log)
-    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas_log)
-    return {
-        "registers": int(regs.group(1)) if regs else None,
-        "spill_store_bytes": int(spill.group(1)) if spill else None,
-        "spill_load_bytes": int(spill.group(2)) if spill else None,
-    }
+    usage = next(iter(cuda_build.ptxas_usage(ptxas_log).values()), {})
+    return {k: usage.get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes")}
 
 
 def _check_rows(rows: torch.Tensor, width: int, name: str) -> None:
@@ -151,12 +80,7 @@ def _launch(src: torch.Tensor, dst: torch.Tensor) -> None:
     n = src.shape[0]
     if n == 0:
         return
-    lib = load_kernel()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sha256_rows(src.data_ptr(), dst.data_ptr(), n, stream)
-    if err:
-        raise RuntimeError(f"sha256_rows launch failed with CUDA error {err}")
+    LIB.launch("sha256_rows", src.data_ptr(), dst.data_ptr(), n, device=src.device)
     COUNTS["launches"] += 1
     COUNTS["rows"] += n
 

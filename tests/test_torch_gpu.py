@@ -1,5 +1,6 @@
 """lighthouse_tpu_torch kernels on a CUDA card, against their plain
-PyTorch versions on the same card and against hashlib: byte-identical.
+PyTorch versions on the same card and against hashlib or the host BLS
+oracle: byte-identical, limb-identical, verdict-identical.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips
 without one. This file imports no JAX, so it also runs where JAX is not
@@ -12,9 +13,20 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import block_update, build_deneb_state, host_state_root
+from chip_smoke import (
+    block_update,
+    bls_g1_points,
+    bls_g2_points,
+    bls_scalars,
+    bls_twist_point_outside_subgroup,
+    build_deneb_state,
+    host_state_root,
+)
 from lighthouse_tpu_torch import default_device, set_default_device
 from lighthouse_tpu_torch.beacon_chain.chain import _make_persistent
+from lighthouse_tpu_torch.ops import bls381 as K2
+from lighthouse_tpu_torch.ops import bls381_htc as K5
+from lighthouse_tpu_torch.ops import bls381_pairing as K4
 from lighthouse_tpu_torch.ops import sha256 as k
 from lighthouse_tpu_torch.types import MinimalEthSpec, build_types
 
@@ -70,3 +82,115 @@ def test_state_root_on_card_equals_host_lanes(cuda):
     block_update(state, E, np.random.default_rng(1))
     root = state.hash_tree_root()
     assert root == host_state_root(state)
+
+
+# ---------------------------------------------------------------------------
+# BLS kernels (K2, K4, K5) against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+
+def _g1(points, dev):
+    return torch.from_numpy(K2.g1_to_limbs(points)).to(dev)
+
+
+def _g2(points, dev):
+    return torch.from_numpy(K2.g2_to_limbs(points)).to(dev)
+
+
+def _launched(counts, name, fn):
+    before = counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert counts[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bls_scalar_mul_matches_plain(cuda, group):
+    rng = np.random.default_rng(11)
+    pts = (_g1 if group == "g1" else _g2)((bls_g1_points if group == "g1" else bls_g2_points)(rng, 5), cuda)
+    k = K2.scalars_to_tensor(bls_scalars(rng, 4) + [2**64 - 1]).to(cuda)
+    got = _launched(K2.COUNTS, f"{group}_scalar_mul", lambda: K2.scalar_mul(group, pts, k))
+    assert torch.equal(got, K2.scalar_mul_plain(group, pts, k))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bls_segment_sum_and_affine_match_plain(cuda, group):
+    """Rows with a repeated point, a point and its negation, and infinity
+    pads, so the add meets P == Q, P == -Q and Z = 0."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, inf, pt_neg
+
+    rng = np.random.default_rng(12)
+    F = FQ if group == "g1" else FQ2
+    p = (bls_g1_points if group == "g1" else bls_g2_points)(rng, 6)
+    rows = [
+        [p[0], p[0], p[1], p[2], inf(F), inf(F), inf(F), inf(F)],
+        [p[3], pt_neg(F, p[3]), p[4], p[4], p[4], p[5], inf(F), inf(F)],
+        [inf(F)] * 8,
+    ]
+    pts = (_g1 if group == "g1" else _g2)([q for r in rows for q in r], cuda)
+    pts = pts.reshape(3, 8, *pts.shape[1:]).contiguous()
+    got = _launched(K2.COUNTS, f"{group}_segment_sum", lambda: K2.segment_sum(group, pts))
+    assert torch.equal(got, K2.segment_sum_plain(group, pts))
+    aff = _launched(K2.COUNTS, f"{group}_to_affine", lambda: K2.to_affine(group, got))
+    assert torch.equal(aff, K2.to_affine_plain(group, got))
+
+
+def test_bls_subgroup_check_matches_plain(cuda):
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ2, to_affine
+
+    rng = np.random.default_rng(13)
+    affs = [to_affine(FQ2, q) for q in bls_g2_points(rng, 3)] + [bls_twist_point_outside_subgroup(rng)]
+    q = torch.from_numpy(K2.fq_to_limbs([v for a in affs for c in a for v in c]).reshape(-1, 2, 2, 12)).to(cuda)
+    q_inf = torch.tensor([False, False, True, False], device=cuda)
+    ok = _launched(K4.COUNTS, "g2_subgroup_check", lambda: K4.g2_subgroup_check(q, q_inf))
+    assert ok.tolist() == [True, True, True, False]
+    assert torch.equal(ok, K4.g2_subgroup_check_plain(q, q_inf))
+
+
+def test_bls_multi_pairing_matches_plain(cuda):
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, to_affine
+
+    rng = np.random.default_rng(14)
+    p = [to_affine(FQ, x) for x in bls_g1_points(rng, 3)]
+    q = [to_affine(FQ2, x) for x in bls_g2_points(rng, 3)]
+    pt = torch.from_numpy(K2.fq_to_limbs([v for a in p for v in a]).reshape(3, 2, 12)).to(cuda)
+    qt = torch.from_numpy(K2.fq_to_limbs([v for a in q for c in a for v in c]).reshape(3, 2, 2, 12)).to(cuda)
+    p_inf = torch.tensor([False, False, True], device=cuda)
+    q_inf = torch.tensor([False, False, False], device=cuda)
+    got = _launched(K4.COUNTS, "multi_pairing", lambda: K4.multi_pairing(pt, p_inf, qt, q_inf))
+    assert torch.equal(got, K4.multi_pairing_plain(pt, p_inf, qt, q_inf))
+
+
+def test_bls_hash_to_g2_matches_plain(cuda):
+    u = torch.from_numpy(K5.messages_to_field([b"abc", bytes(32), bytes(range(32))])).to(cuda)
+    got = _launched(K5.COUNTS, "hash_to_g2", lambda: K5.hash_to_g2(u))
+    assert torch.equal(got, K5.hash_to_g2_plain(u))
+
+
+@pytest.mark.parametrize("valid", [True, False])
+def test_bls_cuda_backend_verdict(cuda, valid):
+    import random
+
+    from lighthouse_tpu_torch.crypto import bls
+
+    sks = [bls.interop_secret_key(i) for i in range(10)]
+    pks = [sk.public_key() for sk in sks]
+    sets = []
+    for j in range(8):
+        msg = bytes([j % 3]) * 32
+        signers = [j, j + 1, (j * 3) % 10]
+        sig = bls.AggregateSignature.from_signatures([sks[i].sign(msg) for i in signers]).to_signature()
+        sets.append(bls.SignatureSet(sig, [pks[i] for i in signers], msg))
+    if not valid:
+        sets[5] = bls.SignatureSet(sets[4].signature, sets[5].pubkeys, sets[5].message)
+    prev = bls.backend_name()
+    try:
+        bls.set_backend("cuda")
+        before = dict(K4.COUNTS)
+        got = bls.verify_signature_sets(sets, random.Random(7))
+        assert K4.COUNTS["multi_pairing"] == before["multi_pairing"] + 1
+    finally:
+        bls.set_backend(prev)
+    assert got is valid
+    assert bls._BACKENDS["host"].verify_signature_sets(sets, random.Random(7)) is valid
