@@ -16,7 +16,9 @@ each, any failure ends the run with a non-zero exit code:
    card and to hashlib; then each BLS kernel (G1/G2 ladders, segment sums
    and affine conversion, the G2 subgroup check, the multi-pairing,
    hash-to-G2) equal to its plain version at the BLS main path's shapes;
-   each with its time, the plain version's time and its bound;
+   each with its time, the plain version's time and its bound; and the
+   epoch-sweep kernel equal to its plain version at 2^20 validators,
+   in and out of the inactivity leak, with edge rows;
 4. main path: the state-root stage of block import. A mainnet-preset Deneb
    BeaconState with 1,000,000 validators is built from ``--seed``,
    given the tree-states representation, and rooted cold through
@@ -31,7 +33,17 @@ each, any failure ends the run with a non-zero exit code:
    each time with the signatures decompressed anew (pubkeys cached);
    verdicts on the block, on four altered batches and on a 64-set gossip
    batch equal to the port's host backend's; each chunk's H(m), sum r_i
-   sig_i and per-message sum r_i aggpk_i equal to the host oracle's.
+   sig_i and per-message sum r_i aggpk_i equal to the host oracle's;
+6. transition main path: that state made the pre-state of an epoch
+   boundary (``epoch_prestate``), then block import across it, as a node
+   runs it: ``per_slot_processing`` (the epoch transition, its sweep on the
+   epoch-sweep kernel), ``per_block_processing`` of a full, really signed
+   Deneb block (128 attestations of the real committees, the sync
+   aggregate, an execution payload with withdrawals) under VERIFY_BULK on
+   the ``cuda`` backend, and ``hash_tree_root()``; three times, each from a
+   copy of the pre-state. The sweep's balances and scores must equal the
+   numpy sweep's, the post-block root the host-lane fold, the block must
+   be accepted and a copy with one wrong attestation signature refused.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -42,6 +54,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -103,9 +116,18 @@ BLS_FQ_MULS = {
     "hash_to_g2": 4403,  # per message
 }
 
+# The epoch sweep (derived in csrc/epoch_sweep.cu's header): the bytes a
+# validator moves (six u64 columns, the slashed and participation bytes
+# in; the new balance and score out) and the least 32-bit operations it
+# needs.
+EPOCH_SWEEP_BYTES = 6 * 8 + 1 + 1 + 2 * 8
+EPOCH_SWEEP_MIN_OPS = 160
+
 # The main path's size: a mainnet registry and a run of block imports.
 N_VALIDATORS = 1_000_000
 UPDATES = 8
+# Timed state transitions (epoch boundary + block + root) in phase 6.
+TRANSITION_REPS = 3
 
 FAR_FUTURE_EPOCH = 2**64 - 1
 
@@ -267,6 +289,81 @@ def block_update(state, E, rng: np.random.Generator) -> None:
     state.state_roots[slot % E.SLOTS_PER_HISTORICAL_ROOT] = rng.bytes(32)
     epoch = slot // E.SLOTS_PER_EPOCH
     state.randao_mixes[epoch % E.EPOCHS_PER_HISTORICAL_VECTOR] = rng.bytes(32)
+
+
+def epoch_sweep_inputs(rng: np.random.Generator, n: int, in_leak: bool) -> tuple[dict, np.ndarray]:
+    """Seeded inputs of the epoch sweep over n validators at mainnet
+    constants: the columns (numpy [n] uint64, bool `slashed`, uint8
+    `prev_flags`) and the [9] uint64 scalars. Besides ordinary rows they
+    hold the edge rows: FAR_FUTURE_EPOCH epochs (pending and active
+    validators), exited ones, slashed ones with withdrawable_epoch ahead of
+    the previous epoch and behind it, balances below their penalties, and
+    effective_balance * score in [2^63, 2^64) as far as the host guard
+    (state_processing/altair.py `_device_sweep_applicable`) admits."""
+    inc = 10**9
+    bias, recovery, quotient = 4, 16, 2**24
+    cur = 300_001
+    prev = cur - 1
+    far = np.uint64(FAR_FUTURE_EPOCH)
+    eb = np.full(n, 32 * inc, np.uint64)
+    low = rng.random(n) < 0.1
+    eb[low] = rng.integers(17, 32, int(low.sum())).astype(np.uint64) * np.uint64(inc)
+    act = rng.integers(0, prev, n).astype(np.uint64)
+    ext = np.full(n, far)
+    wd = np.full(n, far)
+    r = rng.random(n)
+    act[r < 0.02] = far  # pending
+    act[(r >= 0.02) & (r < 0.03)] = cur  # activated at the current epoch
+    gone = (r >= 0.03) & (r < 0.05)  # exited or exiting around prev
+    ext[gone] = rng.integers(prev - 5, prev + 5, int(gone.sum())).astype(np.uint64)
+    wd[gone] = ext[gone] + np.uint64(256)
+    slashed = rng.random(n) < 0.01
+    ext[slashed] = rng.integers(prev - 10, prev + 3, int(slashed.sum())).astype(np.uint64)
+    wd[slashed] = np.uint64(prev)  # prev + 1 < withdrawable is false
+    ahead = slashed & (rng.random(n) < 0.5)
+    wd[ahead] = np.uint64(prev + 4096)
+    flags = np.full(n, 7, np.uint8)
+    mixed = rng.random(n) < 0.05
+    flags[mixed] = rng.integers(0, 7, int(mixed.sum())).astype(np.uint8)
+    scores = np.zeros(n, np.uint64)
+    some = rng.random(n) < 0.01
+    scores[some] = rng.integers(1, 1000, int(some.sum())).astype(np.uint64)
+    bal = (eb.astype(np.int64) + rng.normal(2e7, 1e8, n).astype(np.int64)).clip(0).astype(np.uint64)
+
+    k = max(64, n // 256)
+    edge = rng.permutation(n)[: 2 * k]
+    big, poor = edge[:k], edge[k:]
+    # effective_balance * score >= 2^63 for an active, non-slashed
+    # validator that missed its target, up to the guard's limit
+    eb[big] = np.uint64(32 * inc)
+    act[big] = 0
+    ext[big] = far
+    wd[big] = far
+    slashed[big] = False
+    flags[big] = rng.choice(np.array([0, 1, 4, 5], np.uint8), k)
+    lo = -(-(1 << 63) // (32 * inc)) + recovery
+    hi = (1 << 64) // (32 * inc) - bias
+    scores[big] = rng.integers(lo, hi + 1, k, dtype=np.uint64)
+    # penalties above the balance
+    act[poor] = 0
+    ext[poor] = far
+    flags[poor] = 0
+    bal[poor] = rng.integers(0, 10**6, k).astype(np.uint64)
+    if int(scores.max()) + bias > (1 << 64) // int(eb.max()):
+        raise AssertionError("epoch_sweep_inputs: outside the host guard")
+
+    active_cur = (act <= np.uint64(cur)) & (np.uint64(cur) < ext)
+    total = max(int(eb[active_cur].sum(dtype=np.uint64)), inc)
+    scalars = np.array(
+        [prev, cur, inc * 64 // math.isqrt(total), total // inc, int(in_leak), bias,
+         recovery, bias * quotient, inc],
+        dtype=np.uint64,
+    )
+    cols = dict(
+        effective_balance=eb, slashed=slashed, activation_epoch=act, exit_epoch=ext,
+        withdrawable_epoch=wd, prev_flags=flags, scores=scores, balances=bal,
+    )
+    return cols, scalars
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +579,7 @@ def bls_block(state, types, E, spec, seed: int) -> dict:
         "active": len(active),
         "keygen_s": keygen_s,
         "sign_s": sign_s,
+        "sk_of": sk_of,
     }
 
 
@@ -628,7 +726,14 @@ def phase_build() -> dict:
     report each one's seconds, registers and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = {"bls381_g": k_g.LIB, "bls381_pairing": k_pair.LIB, "bls381_htc": k_htc.LIB}
+    from lighthouse_tpu_torch.ops import epoch_sweep as k7
+
+    libs = {
+        "bls381_g": k_g.LIB,
+        "bls381_pairing": k_pair.LIB,
+        "bls381_htc": k_htc.LIB,
+        "epoch_sweep": k7.LIB,
+    }
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         futs = [pool.submit(k_sha256.load_kernel)] + [pool.submit(lib.load) for lib in libs.values()]
@@ -878,7 +983,81 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     return out
 
 
-def phase_bls_main_path(state, types, E, seed: int) -> dict:
+def _u64_max_abs_err(got: np.ndarray, want: np.ndarray) -> int:
+    return int(np.where(got > want, got - want, want - got).max()) if got.size else 0
+
+
+def phase_epoch_sweep_check(seed: int) -> dict:
+    """The epoch-sweep kernel equal to its plain version on the card at
+    2^20 validators, out of the inactivity leak and in it, with the edge
+    rows of `epoch_sweep_inputs`; its time on device-resident columns, the
+    plain version's, the wrapper's with the copies to and from the card
+    (from writable columns and from read-only ones, as the main path's),
+    and its bound."""
+    from lighthouse_tpu_torch.ops import epoch_sweep as k7
+
+    dev = torch.device("cuda")
+    n = 1 << 20
+    rng = np.random.default_rng(seed + 7)
+    cases, times = {}, {}
+    for leak in (False, True):
+        cols, scalars = epoch_sweep_inputs(rng, n, leak)
+        args = k7.sweep_tensors(cols, scalars, dev)
+        got = [t.cpu().numpy().view(np.uint64) for t in k7.epoch_sweep(*args)]
+        want = [t.cpu().numpy().view(np.uint64) for t in k7.epoch_sweep_plain(*args)]
+        torch.cuda.synchronize()
+        err = max(_u64_max_abs_err(g, w) for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"epoch_sweep (in_leak={leak}) differs from its plain version: {err}")
+        products = cols["effective_balance"].astype(object) * cols["scores"].astype(object)
+        ms = _time_ms(lambda: k7.epoch_sweep(*args), reps=50)
+        _, plain_ms = _plain_ms(lambda: k7.epoch_sweep_plain(*args))
+        t0 = time.perf_counter()
+        k7.epoch_sweep_arrays(cols, scalars, dev)
+        torch.cuda.synchronize()
+        wrapper_ms = (time.perf_counter() - t0) * 1e3
+        # read-only columns, as the main path's EpochArrays hands them over
+        frozen = {k: v.copy() for k, v in cols.items()}
+        for v in frozen.values():
+            v.flags.writeable = False
+        t0 = time.perf_counter()
+        k7.epoch_sweep_arrays(frozen, scalars, dev)
+        torch.cuda.synchronize()
+        wrapper_frozen_ms = (time.perf_counter() - t0) * 1e3
+        cases[f"in_leak={int(leak)}"] = {
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "wrapper_with_copies_ms": wrapper_ms,
+            "wrapper_frozen_columns_ms": wrapper_frozen_ms,
+            "rows_product_ge_2_63": int((products >= 1 << 63).sum()),
+            "rows_far_future_exit": int((cols["exit_epoch"] == np.uint64(FAR_FUTURE_EPOCH)).sum()),
+            "rows_balance_to_zero": int((got[0] == 0).sum()),
+        }
+        times[leak] = (ms, plain_ms)
+    ops_s = EPOCH_SWEEP_MIN_OPS * n / INT32_OPS_PER_S
+    bytes_s = EPOCH_SWEEP_BYTES * n / HBM_BYTES_PER_S
+    out = {
+        "phase": "kernel_checks",
+        "kernel": "epoch_sweep",
+        "validators": n,
+        "cases": cases,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": times[False][0],
+        "plain_ms": times[False][1],
+        "library_ms": "none (no PyTorch call computes the sweep)",
+        "bytes_per_validator": EPOCH_SWEEP_BYTES,
+        "min_ops_per_validator": EPOCH_SWEEP_MIN_OPS,
+        "bound_ms_ops": ops_s * 1e3,
+        "bound_ms_bytes": bytes_s * 1e3,
+        "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+    }
+    emit(out)
+    return out
+
+
+def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
     """The BLS batch verifier on one mainnet Deneb block at `state`'s
     registry, through crypto.bls.verify_signature_sets under the `cuda`
     backend; verdicts held to the port's host backend, stage values to the
@@ -1025,7 +1204,7 @@ def phase_bls_main_path(state, types, E, seed: int) -> dict:
         "stage_sums_equal_host_chunks": len(stages),
     }
     emit(out)
-    return out
+    return out, blk["sk_of"]
 
 
 def _profile_block(fn) -> dict:
@@ -1160,6 +1339,491 @@ def phase_main_path(n: int, updates: int, seed: int) -> dict:
     return out, state
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the state transition across an epoch boundary
+# ---------------------------------------------------------------------------
+
+# Spans of the transition the port's utils/tracing records (histograms
+# `trace_span_seconds_<name>`), read as per-rep sums.
+TRANSITION_SPANS = (
+    "epoch_transition",
+    "epoch_stage_columns_refresh",
+    "epoch_stage_justification",
+    "epoch_stage_rewards",
+    "epoch_stage_registry_updates",
+    "epoch_stage_slashings",
+    "epoch_stage_effective_balances",
+    "epoch_stage_final_updates",
+    "signature_set_assembly",
+    "signature_batch_verify",
+    "attestation_apply",
+)
+
+
+def _span_sums() -> dict:
+    from lighthouse_tpu_torch.metrics import REGISTRY
+
+    return {name: REGISTRY.histogram(f"trace_span_seconds_{name}").sum for name in TRANSITION_SPANS}
+
+
+def _column_rebuilds() -> float:
+    from lighthouse_tpu_torch.metrics import REGISTRY
+
+    return sum(REGISTRY.counter("registry_columns_rebuilds_total").values().values())
+
+
+def epoch_prestate(state, E, spec, seed: int) -> dict:
+    """Make `state` (the registry of phases 4 and 5, tree-states) the
+    pre-state of an epoch transition, in place, from `seed`: the last slot
+    of an epoch that is neither a sync-committee period nor a
+    historical-summary boundary; justified checkpoints one and two epochs
+    back, finalized two back (no inactivity leak); effective balances at or
+    below the ejection balance raised to 32 ETH but for 16 that registry
+    updates eject; balances spread around the effective balances, so
+    hysteresis moves some; 95% of both epochs' participation flags timely
+    source, target and head, the rest mixed; 1% of inactivity scores
+    nonzero; the slashed validators exiting, half of them at the epoch that
+    process_slashings penalises, the rest withdrawable later; 128
+    validators entering the activation queue, 128 in it, 64 exits queued.
+    Attaches the resident registry columns and warms the root cache."""
+    from lighthouse_tpu_torch.state_processing.accessors import get_block_root
+    from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+
+    rng = np.random.default_rng(seed + 11)
+    n = len(state.validators)
+    S = E.SLOTS_PER_EPOCH
+    epoch = int(state.slot) // S
+    while (epoch + 1) % E.EPOCHS_PER_SYNC_COMMITTEE_PERIOD == 0 or (epoch + 1) % (
+        E.SLOTS_PER_HISTORICAL_ROOT // S
+    ) == 0:
+        epoch += 1
+    state.slot = epoch * S + S - 1
+    cols = registry_columns_for(state)
+    cols.refresh(state)
+    vs = state.validators
+    eb = np.array(cols.effective_balance, dtype=np.uint64)
+    slashed = np.array(cols.slashed)
+    active = (cols.activation_epoch <= np.uint64(epoch)) & (np.uint64(epoch) < cols.exit_epoch)
+
+    def put(idx, field, value):
+        vs.set_fields_bulk(idx.tolist(), field, [value] * int(idx.size))
+
+    low = np.nonzero(active & (eb <= np.uint64(spec.ejection_balance)) & ~slashed)[0]
+    ejected = rng.choice(low, 16, replace=False)
+    raised = np.setdiff1d(low, ejected)
+    put(raised, "effective_balance", E.MAX_EFFECTIVE_BALANCE)
+    eb[raised] = E.MAX_EFFECTIVE_BALANCE
+
+    sl = np.nonzero(slashed)[0]
+    at_penalty = sl[rng.random(sl.size) < 0.5]
+    later = np.setdiff1d(sl, at_penalty)
+    put(sl, "exit_epoch", epoch + 2)
+    put(at_penalty, "withdrawable_epoch", epoch + E.EPOCHS_PER_SLASHINGS_VECTOR // 2)
+    put(later, "withdrawable_epoch", epoch + 200)
+    for i in range(E.EPOCHS_PER_SLASHINGS_VECTOR):
+        state.slashings[i] = 0
+    state.slashings[epoch % E.EPOCHS_PER_SLASHINGS_VECTOR] = int(eb[sl].sum())
+
+    pool = np.nonzero(active & ~slashed & (cols.exit_epoch == np.uint64(FAR_FUTURE_EPOCH)))[0]
+    pick = rng.choice(np.setdiff1d(pool, ejected), 128 + 128 + 64, replace=False)
+    entering, queued, exiting = pick[:128], pick[128:256], pick[256:]
+    put(entering, "activation_eligibility_epoch", FAR_FUTURE_EPOCH)
+    put(entering, "activation_epoch", FAR_FUTURE_EPOCH)
+    put(entering, "effective_balance", E.MAX_EFFECTIVE_BALANCE)
+    eb[entering] = E.MAX_EFFECTIVE_BALANCE
+    put(queued, "activation_eligibility_epoch", epoch - 3)
+    put(queued, "activation_epoch", FAR_FUTURE_EPOCH)
+    put(exiting, "exit_epoch", epoch + 3)
+    put(exiting, "withdrawable_epoch", epoch + 3 + 256)
+
+    Checkpoint = type(state.finalized_checkpoint)
+    state.previous_justified_checkpoint = Checkpoint(epoch=epoch - 2, root=get_block_root(state, epoch - 2, E))
+    state.current_justified_checkpoint = Checkpoint(epoch=epoch - 1, root=get_block_root(state, epoch - 1, E))
+    state.finalized_checkpoint = Checkpoint(epoch=epoch - 2, root=get_block_root(state, epoch - 2, E))
+    state.justification_bits = [True, True, False, False]
+
+    for field in ("previous_epoch_participation", "current_epoch_participation"):
+        flags = np.full(n, 7, np.uint8)
+        mixed = rng.random(n) < 0.05
+        flags[mixed] = rng.integers(0, 7, int(mixed.sum()), dtype=np.uint8)
+        getattr(state, field).store_array(flags)
+    scores = np.zeros(n, np.uint64)
+    some = rng.random(n) < 0.01
+    scores[some] = rng.integers(1, 100, int(some.sum()), dtype=np.uint64)
+    state.inactivity_scores.store_array(scores)
+    balances = (eb.astype(np.int64) + rng.normal(2e7, 1e8, n).astype(np.int64)).clip(0)
+    state.balances.store_array(balances.astype(np.uint64))
+
+    cols.refresh(state)
+    t0 = time.perf_counter()
+    state.hash_tree_root()
+    return {
+        "epoch": epoch,
+        "slot": int(state.slot),
+        "ejected": int(ejected.size),
+        "effective_balance_raised": int(raised.size),
+        "slashed": int(sl.size),
+        "slashed_at_penalty_epoch": int(at_penalty.size),
+        "activation_entering": int(entering.size),
+        "activation_queued": int(queued.size),
+        "exits_queued": int(exiting.size),
+        "inactivity_scores_nonzero": int(some.sum()),
+        "warm_root_s": time.perf_counter() - t0,
+    }
+
+
+def transition_block(pre, types, E, spec, sk_of: dict, seed: int) -> dict:
+    """One full mainnet Deneb block for the first slot after `pre`'s epoch
+    boundary, built with the port's accessors: the proposer from
+    get_beacon_proposer_index, its RANDAO reveal, one Attestation per
+    committee of the two previous slots (get_beacon_committee; ~98% of
+    bits set), the sync aggregate of the current sync committee (~98% of
+    bits set), an execution payload with the parent hash, prev_randao,
+    timestamp and get_expected_withdrawals the state asks for, and no
+    blobs. Every signature is real: signers without a key from phase 5
+    get seeded keys, written into `pre`'s registry and the pubkey cache.
+    The block's state_root is the post-state's, from a run without
+    signature checks; also returns a copy of the block with one
+    attestation signed over another message (re-signed by the proposer)."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_processing import (
+        BlockSignatureStrategy,
+        per_block_processing,
+        per_slot_processing,
+    )
+    from lighthouse_tpu_torch.state_processing import signature_sets as ss
+    from lighthouse_tpu_torch.state_processing.accessors import (
+        committee_cache_at,
+        get_beacon_committee,
+        get_beacon_proposer_index,
+        get_block_root,
+        get_block_root_at_slot,
+        get_domain,
+        get_randao_mix,
+    )
+    from lighthouse_tpu_torch.state_processing.bellatrix import compute_timestamp_at_slot
+    from lighthouse_tpu_torch.state_processing.capella import get_expected_withdrawals
+    from lighthouse_tpu_torch.types.chain_spec import Domain, compute_signing_root
+
+    rng = np.random.default_rng(seed + 13)
+    T = types.types_for_fork("deneb")
+    S = E.SLOTS_PER_EPOCH
+    slot = int(pre.slot) + 1
+    epoch = slot // S
+    att_epoch = epoch - 1
+
+    committees = []
+    for a_slot in (slot - 2, slot - 1):
+        for index in range(committee_cache_at(pre, att_epoch, E).committees_per_slot):
+            committees.append((a_slot, index, np.asarray(get_beacon_committee(pre, a_slot, index, E))))
+    committees = committees[: E.MAX_ATTESTATIONS]
+    bits = [rng.random(c.size) < 0.98 for _, _, c in committees]
+    probe = pre.copy()
+    per_slot_processing(probe, spec, E)
+    proposer = get_beacon_proposer_index(probe, E)
+    del probe
+
+    attesters = np.unique(np.concatenate([c[b] for (_, _, c), b in zip(committees, bits)]))
+    new = [i for i in np.union1d(attesters, [proposer]).tolist() if i not in sk_of]
+    t0 = time.perf_counter()
+    sks, affs, pks = bls_keys(rng, len(new))
+    keygen_s = time.perf_counter() - t0
+    sk_of.update(zip(new, sks))
+    pre.validators.set_fields_bulk(new, "pubkey", pks)
+    for (x, y), pk in zip(affs, pks):
+        ss._PUBKEY_CACHE.setdefault(pk, bls.PublicKey(pk, (x, y, 1)))
+    pre.hash_tree_root()
+
+    t0 = time.perf_counter()
+    mid = pre.copy()
+    per_slot_processing(mid, spec, E)
+    if get_beacon_proposer_index(mid, E) != proposer:
+        raise AssertionError("the proposer moved with the registry's pubkeys")
+    att_domain = get_domain(mid, Domain.BEACON_ATTESTER, att_epoch, spec, E)
+    target = types.Checkpoint(epoch=att_epoch, root=get_block_root(mid, att_epoch, E))
+
+    def attestation(a_slot, index, members, b, head=None):
+        data = types.AttestationData(
+            slot=a_slot,
+            index=index,
+            beacon_block_root=head or get_block_root_at_slot(mid, a_slot, E),
+            source=mid.previous_justified_checkpoint,
+            target=target,
+        )
+        sig = bls_sign(sum(sk_of[int(i)] for i in members[b]), compute_signing_root(data.hash_tree_root(), att_domain))
+        return types.Attestation(aggregation_bits=b.tolist(), data=data, signature=sig)
+
+    atts = [attestation(a, i, c, b) for (a, i, c), b in zip(committees, bits)]
+    sk_by_pk = {bytes(mid.validators[i].pubkey): sk for i, sk in sk_of.items()}
+    sync_pks = [bytes(pk) for pk in mid.current_sync_committee.pubkeys]
+    sync_bits = (rng.random(E.SYNC_COMMITTEE_SIZE) >= 0.02).tolist()
+    sync_msg = compute_signing_root(
+        get_block_root_at_slot(mid, slot - 1, E),
+        get_domain(mid, Domain.SYNC_COMMITTEE, (slot - 1) // S, spec, E),
+    )
+    sync_sig = bls_sign(sum(sk_by_pk[pk] for pk, b in zip(sync_pks, sync_bits) if b), sync_msg)
+    randao = bls_sign(
+        sk_of[proposer],
+        compute_signing_root(epoch.to_bytes(8, "little").ljust(32, b"\x00"), get_domain(mid, Domain.RANDAO, epoch, spec, E)),
+    )
+    header = mid.latest_execution_payload_header
+    withdrawals = get_expected_withdrawals(mid, E)
+    payload = T.ExecutionPayload(
+        parent_hash=header.block_hash,
+        fee_recipient=rng.bytes(20),
+        state_root=rng.bytes(32),
+        receipts_root=rng.bytes(32),
+        logs_bloom=rng.bytes(256),
+        prev_randao=get_randao_mix(mid, epoch, E),
+        block_number=int(header.block_number) + 1,
+        gas_limit=int(header.gas_limit),
+        gas_used=int(rng.integers(0, int(header.gas_limit))),
+        timestamp=compute_timestamp_at_slot(mid, spec, E),
+        extra_data=rng.bytes(16),
+        base_fee_per_gas=int(header.base_fee_per_gas),
+        block_hash=rng.bytes(32),
+        transactions=[rng.bytes(int(k)) for k in rng.integers(100, 600, 150)],
+        withdrawals=withdrawals,
+        blob_gas_used=0,
+        excess_blob_gas=0,
+    )
+    block = T.BeaconBlock(
+        slot=slot,
+        proposer_index=proposer,
+        parent_root=mid.latest_block_header.hash_tree_root(),
+        state_root=b"\x00" * 32,
+        body=T.BeaconBlockBody(
+            randao_reveal=randao,
+            eth1_data=mid.eth1_data,
+            graffiti=rng.bytes(32),
+            attestations=atts,
+            sync_aggregate=types.SyncAggregate(sync_committee_bits=sync_bits, sync_committee_signature=sync_sig),
+            execution_payload=payload,
+        ),
+    )
+    post = mid.copy()
+    per_block_processing(
+        post, T.SignedBeaconBlock(message=block, signature=b"\x00" * 96), spec, E,
+        BlockSignatureStrategy.NO_VERIFICATION, verify_block_root=False,
+    )
+    block.state_root = post.hash_tree_root()
+    proposer_domain = get_domain(mid, Domain.BEACON_PROPOSER, epoch, spec, E)
+
+    def signed(blk):
+        msg = compute_signing_root(blk.hash_tree_root(), proposer_domain)
+        return T.SignedBeaconBlock(message=blk, signature=bls_sign(sk_of[proposer], msg))
+
+    good = signed(block)
+    bad = T.BeaconBlock.deserialize(block.serialize())
+    other = attestation(*committees[5], bits[5], head=rng.bytes(32))
+    bad.body.attestations[5].signature = other.signature
+    return {
+        "signed": good.serialize(),
+        "tampered": signed(bad).serialize(),
+        "mid": mid,
+        "post_root": bytes(block.state_root),
+        "attestations": len(atts),
+        "attesting_validators": int(attesters.size),
+        "committees_per_slot": len(committees) // 2,
+        "withdrawals": len(withdrawals),
+        "new_keys": len(new),
+        "keygen_s": keygen_s,
+        "production_s": time.perf_counter() - t0,
+    }
+
+
+def phase_transition_main_path(state, types, E, sk_of: dict, seed: int) -> dict:
+    """Block import across an epoch boundary on the 1M-validator state, as
+    a node runs it: per_slot_processing over the boundary (the epoch
+    transition, the sweep on the epoch-sweep kernel), per_block_processing
+    of a full signed Deneb block under VERIFY_BULK on the `cuda` BLS
+    backend, then hash_tree_root(); TRANSITION_REPS times, each from a
+    copy() of the same pre-state. Checks: (a) the kernel's new balances
+    and scores byte-equal to the port's numpy sweep on the same pre-state
+    arrays; (b) the post-block root equal to the host-lane fold; (c) the
+    block accepted; (d) the block with one attestation signed over another
+    message refused."""
+    import statistics
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.ops import epoch_sweep as k7
+    from lighthouse_tpu_torch.state_processing import (
+        BlockProcessingError,
+        BlockSignatureStrategy,
+        altair,
+        per_block_processing,
+        per_slot_processing,
+    )
+    from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+    from lighthouse_tpu_torch.types.chain_spec import ForkName, mainnet_spec
+
+    spec = mainnet_spec()
+    T = types.types_for_fork("deneb")
+    bls.set_backend("cuda")
+    t0 = time.perf_counter()
+    prestate = epoch_prestate(state, E, spec, seed)
+    prestate["setup_s"] = time.perf_counter() - t0
+    pre = state
+    arrays = altair.EpochArrays(pre, E, columns=registry_columns_for(pre))
+    if not altair._device_sweep_applicable(pre, arrays, spec, E):
+        raise AssertionError("the host guard keeps the pre-state off the epoch-sweep kernel")
+    blk = transition_block(pre, types, E, spec, sk_of, seed)
+
+    # the main path: counts at zero just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k_sha256.reset_counts()
+    reset_bls_counts()
+    k7.reset_counts()
+    reps = []
+    for rep in range(TRANSITION_REPS):
+        s = pre.copy()
+        signed = T.SignedBeaconBlock.deserialize(blk["signed"])
+        bls._SIG_CACHE.clear()
+        spans0, rebuilds0, k7_0 = _span_sums(), _column_rebuilds(), k7.COUNTS["launches"]
+        t0 = time.perf_counter()
+        per_slot_processing(s, spec, E)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        # the state root is timed apart below and checked against the
+        # block's state_root after the reps
+        per_block_processing(s, signed, spec, E, BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        root = s.hash_tree_root()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        spans = {k: v - spans0[k] for k, v in _span_sums().items()}
+        sig_s = spans["signature_set_assembly"] + spans["signature_batch_verify"]
+        reps.append(
+            {
+                "total_s": t3 - t0,
+                "per_slot_s": t1 - t0,
+                "epoch_transition_s": spans["epoch_transition"],
+                "block_s": t2 - t1,
+                "block_signatures_s": sig_s,
+                "block_rest_s": (t2 - t1) - sig_s,
+                "state_root_s": t3 - t2,
+                "spans_s": spans,
+                "epoch_sweep_launches": k7.COUNTS["launches"] - k7_0,
+                "registry_columns_rebuilds": _column_rebuilds() - rebuilds0,
+                "root": root.hex(),
+            }
+        )
+        post = s
+    counts = {"epoch_sweep": k7.COUNTS["launches"], "sha256_rows": k_sha256.COUNTS["launches"], **bls_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"the transition main path launched no {missing}")
+    if any(r["epoch_sweep_launches"] != 1 for r in reps):
+        raise AssertionError("an epoch transition ran without the epoch-sweep kernel")
+    if any(r["registry_columns_rebuilds"] for r in reps[1:]):
+        raise AssertionError("resident registry columns rebuilt after the first epoch")
+    if len({r["root"] for r in reps}) != 1 or reps[0]["root"] != blk["post_root"].hex():
+        raise AssertionError("post-block roots differ between reps or from the block's state_root")
+
+    # (a) the kernel's sweep against the port's numpy sweep, on copies of
+    # the same pre-state after justification
+    a = pre.copy()
+    cols = registry_columns_for(a)
+    cols.refresh(a)
+    arr = altair.EpochArrays(a, E, columns=cols)
+    altair.process_justification_and_finalization_altair(a, E, arr)
+    b = a.copy()
+    launches = k7.COUNTS["launches"]
+    altair._device_rewards_and_inactivity(a, spec, E, ForkName.DENEB, arr)
+    if k7.COUNTS["launches"] != launches + 1:
+        raise AssertionError("(a) the sweep did not launch the kernel")
+    colsb = registry_columns_for(b)
+    colsb.refresh(b)
+    arrb = altair.EpochArrays(b, E, columns=colsb)
+    altair.process_inactivity_updates(b, spec, E, arrb)
+    altair.process_rewards_and_penalties_altair(b, spec, E, ForkName.DENEB, arrb)
+    for field in ("balances", "inactivity_scores"):
+        if getattr(a, field).load_array().tobytes() != getattr(b, field).load_array().tobytes():
+            raise AssertionError(f"(a) kernel {field} differ from the numpy sweep")
+
+    # (b) the post-block root against the host-lane fold
+    t0 = time.perf_counter()
+    if host_state_root(post) != bytes.fromhex(reps[0]["root"]):
+        raise AssertionError("(b) post-block root differs from the host-lane fold")
+    oracle_s = time.perf_counter() - t0
+
+    # (d) one attestation signed over another message: refused
+    refused = False
+    try:
+        per_block_processing(
+            blk["mid"].copy(), T.SignedBeaconBlock.deserialize(blk["tampered"]), spec, E,
+            BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False,
+        )
+    except BlockProcessingError as e:
+        refused = "bulk signature verification failed" in str(e)
+    if not refused:
+        raise AssertionError("(d) the block with a wrong attestation signature was accepted")
+
+    # the cold root of the pre-state with a fresh hash cache, with and
+    # without the resident registry columns (phase 4's cold root had none)
+    cold = {}
+    for label, keep_columns in (("with_columns", True), ("without_columns", False)):
+        c = pre.copy()
+        c.__dict__.pop("_thc_cache", None)
+        if not keep_columns:
+            c.__dict__.pop("_registry_columns", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        root = c.hash_tree_root()
+        torch.cuda.synchronize()
+        cold[label + "_s"] = time.perf_counter() - t0
+        if root != pre.hash_tree_root():
+            raise AssertionError(f"cold root {label} differs from the pre-state's")
+
+    # one more rep under the profiler, after the counts are read
+    s = pre.copy()
+    signed = T.SignedBeaconBlock.deserialize(blk["signed"])
+    bls._SIG_CACHE.clear()
+
+    def one_rep():
+        per_slot_processing(s, spec, E)
+        per_block_processing(s, signed, spec, E, BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False)
+        return s.hash_tree_root() == blk["post_root"]
+
+    profile = _profile_block(one_rep)
+
+    med = statistics.median(r["total_s"] for r in reps)
+    out = {
+        "phase": "transition_main_path",
+        "preset": E.NAME,
+        "fork": "deneb",
+        "validators": len(pre.validators),
+        "prestate": prestate,
+        "block": {k: v for k, v in blk.items() if k not in ("signed", "tampered", "mid", "post_root")},
+        "reps": reps,
+        "total_median_s": med,
+        "epoch_transition_median_s": statistics.median(r["epoch_transition_s"] for r in reps),
+        "per_slot_median_s": statistics.median(r["per_slot_s"] for r in reps),
+        "block_median_s": statistics.median(r["block_s"] for r in reps),
+        "block_signatures_median_s": statistics.median(r["block_signatures_s"] for r in reps),
+        "block_rest_median_s": statistics.median(r["block_rest_s"] for r in reps),
+        "state_root_median_s": statistics.median(r["state_root_s"] for r in reps),
+        "launches": counts,
+        "epoch_sweep_launches": counts["epoch_sweep"],
+        "registry_columns_rebuilds": [r["registry_columns_rebuilds"] for r in reps],
+        "max_memory_allocated_bytes": peak,
+        "profile": profile,
+        "host_lane_oracle_s": oracle_s,
+        "prestate_cold_root": cold,
+        "checks": {
+            "(a) sweep equal numpy": True,
+            "(b) root equal host lanes": True,
+            "(c) block accepted": True,
+            "(d) wrong attestation signature refused": True,
+        },
+    }
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1186,8 +1850,11 @@ def main(argv=None) -> int:
     phase_build()
     checks = phase_kernel_checks(args.seed)
     bls_checks = phase_bls_kernel_checks(args.seed)
+    sweep_check = phase_epoch_sweep_check(args.seed)
     main_path, state = phase_main_path(N_VALIDATORS, UPDATES, args.seed)
-    bls_path = phase_bls_main_path(state, build_types(MainnetEthSpec), MainnetEthSpec, args.seed)
+    types = build_types(MainnetEthSpec)
+    bls_path, sk_of = phase_bls_main_path(state, types, MainnetEthSpec, args.seed)
+    transition = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed)
 
     emit(
         {
@@ -1221,6 +1888,21 @@ def main(argv=None) -> int:
                     "library_ms": None,
                 }
                 for name, (_, src, replaces) in BLS_KERNELS.items()
+            ]
+            + [
+                {
+                    "name": "epoch_sweep",
+                    "route": "cuda",
+                    "source": "lighthouse_tpu_torch/csrc/epoch_sweep.cu",
+                    "replaces": "lighthouse_tpu/ops/epoch_sweep.py:39",
+                    "launches": transition["epoch_sweep_launches"],
+                    "max_abs_err": sweep_check["max_abs_err"],
+                    "ms": sweep_check["ms"],
+                    "plain_ms": sweep_check["plain_ms"],
+                    "bound_ms": sweep_check["bound_ms"],
+                    "bound_by": sweep_check["bound_by"],
+                    "library_ms": None,
+                }
             ]
         }
     )

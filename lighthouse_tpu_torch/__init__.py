@@ -11,7 +11,10 @@ Ported so far: the SSZ layer and consensus types up to
 (``ops/sha256.py``, ``csrc/sha256.cu``; slice 1); BLS batch signature
 verification, ``crypto.bls.verify_signature_sets`` under the ``cuda``
 backend, on the BLS12-381 kernels (``ops/bls381*.py``,
-``csrc/bls381_*``; slice 2). The device policy is in ``device.py``:
+``csrc/bls381_*``; slice 2); the state transition,
+``state_processing.per_slot_processing`` / ``per_block_processing``, with
+the Altair epoch sweep on its kernel (``ops/epoch_sweep.py``,
+``csrc/epoch_sweep.cu``; slice 3). The device policy is in ``device.py``:
 kernels run on ``cuda`` unless the caller asks for the CPU.
 """
 

@@ -1,14 +1,42 @@
-"""Runtime copy-on-write guard for the tree-states protocol
-(`LIGHTHOUSE_TPU_SANITIZE=1`).
+"""Runtime CoW / overflow / stale-read sanitizer for the tree-states
+protocol (`LIGHTHOUSE_TPU_SANITIZE=1`).
 
-Counterpart of lighthouse_tpu/analysis/sanitizer.py, cut to the rule the
-SSZ layer uses (``cow-write``): with the sanitizer on,
-`PersistentList.load_array` / `PersistentByteList.load_array` return
-read-only `GuardedArray` views, so an escaped view that something later
-writes raises `SanitizerError` at the write site (and counts), instead of
-silently diverging the list from its committed hash baselines.
+Counterpart of lighthouse_tpu/analysis/sanitizer.py, copied.
 
-Every violation increments ``VIOLATIONS[rule]`` and raises
+The tree-states machinery (ssz/persistent.py CoW blocks, the resident
+RegistryColumns mirror, the zero-copy committee/epoch array views) keeps
+its invariants by convention; this module makes the conventions
+machine-checked at runtime, the way a training stack runs under ASan/TSan
+before a big job:
+
+* **Write-guarded buffers** (rule ``cow-write``): with the sanitizer on,
+  `PersistentList.load_array` / `PersistentByteList.load_array` return
+  read-only `GuardedArray` views — an escaped view that something later
+  writes raises `SanitizerError` at the write site (and counts), instead
+  of silently diverging the list from its committed hash/column
+  baselines. Sanctioned writers (`store_array`, `write_participation`,
+  `RegistryColumns._write_col`) never write through these views, so they
+  need no re-enable; `writable_window` exists for code that must briefly
+  unfreeze a buffer it owns.
+
+* **No-wraparound sweeps** (rule ``u64-wrap``): the vectorized helpers in
+  `utils/safe_arith` prove every uint64 lane exact (overflow, underflow,
+  divide-back multiplication checks) and route failures here.
+
+* **Stale-read audit** (rule ``stale-read``): RegistryColumns records its
+  source lists at refresh time; reading a column property while the
+  source's ``columns`` dirty channel still holds undrained dirt means the
+  reader skipped `refresh()` and is consuming a stale mirror.
+
+Independent of the sanitize flag, the zero-copy read views
+(`CommitteeCache.committee_array` slices, `EpochArrays` column views,
+`RegistryColumns` properties) are frozen with ``setflags(write=False)``
+in ALL modes — those writes were silent state corruption, and the freeze
+is free.
+
+Every violation increments ``sanitizer_violations_total{rule=...}``
+(eagerly registered in the port's metrics registry; nothing in the port
+reads it yet) and raises
 `SanitizerError`.
 """
 
@@ -18,11 +46,18 @@ import os
 
 import numpy as np
 
+from ..metrics import REGISTRY
+
 ENV_VAR = "LIGHTHOUSE_TPU_SANITIZE"
 
-RULES = ("cow-write",)
+RULES = ("cow-write", "u64-wrap", "stale-read")
 
-VIOLATIONS = {rule: 0 for rule in RULES}
+_VIOLATIONS = REGISTRY.counter(
+    "sanitizer_violations_total",
+    "runtime sanitizer violations, by rule (LIGHTHOUSE_TPU_SANITIZE=1)",
+)
+for _rule in RULES:
+    _VIOLATIONS.inc(0, rule=_rule)
 
 
 class SanitizerError(AssertionError):
@@ -35,10 +70,19 @@ def enabled() -> bool:
     return os.environ.get(ENV_VAR) == "1"
 
 
+def record_violation(rule: str, detail: str = "") -> str:
+    _VIOLATIONS.inc(rule=rule)
+    return f"sanitizer[{rule}]: {detail}"
+
+
 def violation(rule: str, detail: str = ""):
     """Record and raise — the one exit every runtime check uses."""
-    VIOLATIONS[rule] += 1
-    raise SanitizerError(f"sanitizer[{rule}]: {detail}")
+    raise SanitizerError(record_violation(rule, detail))
+
+
+# ---------------------------------------------------------------------------
+# Guarded arrays (the cow-write rule)
+# ---------------------------------------------------------------------------
 
 
 class GuardedArray(np.ndarray):
@@ -74,3 +118,56 @@ def guard(arr: np.ndarray) -> np.ndarray:
     view = arr.view(GuardedArray)
     np.ndarray.setflags(view, write=False)
     return view
+
+
+def freeze_view(arr: np.ndarray) -> np.ndarray:
+    """A read-only plain view of `arr` — the ALL-modes freeze for
+    zero-copy read surfaces (committee slices, column properties). Slices
+    of the result inherit read-only. Costs one view object."""
+    view = arr[...] if isinstance(arr, np.ndarray) else np.asarray(arr)[...]
+    view.setflags(write=False)
+    return view
+
+
+class writable_window:
+    """Temporarily re-enable writes on a frozen buffer the caller owns —
+    the guarded re-enable for store_array-class entry points that must
+    mutate a frozen base in place (`EpochArrays.write_snapshot_rows` /
+    `refresh_rows` over the frozen legacy snapshot columns). Always
+    re-freezes on exit, including on exception."""
+
+    __slots__ = ("_arr", "_was")
+
+    def __init__(self, arr: np.ndarray):
+        self._arr = arr
+
+    def __enter__(self):
+        self._was = self._arr.flags.writeable
+        np.ndarray.setflags(self._arr, write=True)
+        return self._arr
+
+    def __exit__(self, *exc):
+        np.ndarray.setflags(self._arr, write=self._was)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Stale-read audit (RegistryColumns hook)
+# ---------------------------------------------------------------------------
+
+
+def audit_column_read(field: str, source) -> None:
+    """Called by RegistryColumns property getters under sanitize with the
+    recorded source list: undrained dirt in the source's columns channel
+    means the resident mirror is stale for this field."""
+    if source is None:
+        return
+    from ..state_processing.registry_columns import COLUMNS_CHANNEL
+
+    ch = source._channels.get(COLUMNS_CHANNEL)
+    if ch is not None and (ch.dirty or ch.dirty_all):
+        violation(
+            "stale-read",
+            f"column {field!r} read while its source list holds "
+            f"undrained dirt — refresh() the columns first",
+        )

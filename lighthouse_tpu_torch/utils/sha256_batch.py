@@ -16,6 +16,13 @@ dispatcher the Merkleization caches call: the hashlib loop below
 lighthouse_tpu_torch/device.py). There is no mode switch and no fallback:
 the device decides, and a kernel failure raises.
 
+`sha256_batch` hashes same-length messages of any length on numpy lanes,
+and `hash_messages` is their dispatcher (the swap-or-not shuffle's 37-byte
+round messages): hashlib below `_BATCH_MIN` messages, above it whichever of
+hashlib and numpy lanes a one-time calibration (`_calibrate`) measures
+faster. As in the JAX package, no kernel hashes messages of other lengths
+than 64 bytes, so this stays on the host.
+
 numpy rows are processed in `_CHUNK`-sized slices so the ~30 live [m]
 uint32 lanes stay cache-resident instead of streaming 4 MB arrays per ufunc.
 """
@@ -23,6 +30,7 @@ uint32 lanes stay cache-resident instead of streaming 4 MB arrays per ufunc.
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 
@@ -184,6 +192,68 @@ def hash_rows_numpy(pairs: np.ndarray) -> np.ndarray:
     return out
 
 
+def sha256_batch(messages: np.ndarray) -> np.ndarray:
+    """SHA-256 of n same-length messages: [n, L] uint8 → [n, 32] uint8.
+
+    General path (padding + multi-block loop) on numpy lanes; Merkleization
+    uses the 64-byte `hash_rows` specialization.
+    """
+    messages = np.atleast_2d(np.asarray(messages, dtype=np.uint8))
+    n, length = messages.shape
+    if n == 0:
+        return np.zeros((0, 32), dtype=np.uint8)
+    n_blocks = (length + 9 + 63) // 64
+    buf = np.zeros((n, n_blocks * 64), dtype=np.uint8)
+    buf[:, :length] = messages
+    buf[:, length] = 0x80
+    bitlen = np.frombuffer((length * 8).to_bytes(8, "big"), dtype=np.uint8)
+    buf[:, -8:] = bitlen
+    words = buf.view(">u4").astype(np.uint32)  # [n, n_blocks * 16]
+    out = np.empty((n, 32), np.uint8)
+    for s in range(0, n, _CHUNK):
+        m = min(_CHUNK, n - s)
+        state8 = [np.full(m, _IV[i], dtype=np.uint32) for i in range(8)]
+        scratch = [np.empty(m, np.uint32) for _ in range(4)]
+        for b in range(n_blocks):
+            blk = words[s : s + m, b * 16 : (b + 1) * 16]
+            w16 = [np.ascontiguousarray(blk[:, i]) for i in range(16)]
+            _compress_lanes(state8, None, w16, scratch)
+        out[s : s + m] = _digest_lanes(state8, m)
+    return out
+
+
+def _host_mode(n: int) -> str:
+    """The host lane for n messages: hashlib under _BATCH_MIN, else the
+    calibrated winner."""
+    return "hashlib" if n < _BATCH_MIN else _calibrate()
+
+
+def hash_messages(messages: np.ndarray) -> np.ndarray:
+    """SHA-256 of n same-length messages: [n, L] uint8 → [n, 32] uint8.
+
+    Small batches take a C-speed hashlib loop (numpy lane setup costs
+    more than it saves); large batches take the calibrated winner. The
+    calibration measures the 64-byte two-to-one shape — a close proxy for
+    any message under two compression blocks (the swap-or-not shuffle's
+    37-byte round messages, the main consumer here).
+    """
+    messages = np.atleast_2d(np.asarray(messages, dtype=np.uint8))
+    n, length = messages.shape
+    if n == 0:
+        return np.zeros((0, 32), dtype=np.uint8)
+    if _host_mode(n) == "numpy":
+        return sha256_batch(messages)
+    data = messages.tobytes()
+    out = bytearray(n * 32)
+    mv = memoryview(data)
+    sha = hashlib.sha256
+    for i in range(n):
+        out[i * 32 : (i + 1) * 32] = sha(
+            mv[i * length : (i + 1) * length]
+        ).digest()
+    return np.frombuffer(out, dtype=np.uint8).reshape(n, 32)
+
+
 def hash_rows_hashlib(pairs: np.ndarray) -> np.ndarray:
     """[n, 64] uint8 → [n, 32] uint8 via one C-speed hashlib pass over a
     contiguous buffer (no per-row numpy objects)."""
@@ -197,6 +267,27 @@ def hash_rows_hashlib(pairs: np.ndarray) -> np.ndarray:
     # frombuffer over the bytearray: zero-copy AND writable (callers
     # commit these rows into mutable tree layers)
     return np.frombuffer(out, dtype=np.uint8).reshape(m, 32)
+
+
+# one-time in-process calibration result: "hashlib" or "numpy"
+_calibrated: str | None = None
+
+
+def _calibrate() -> str:
+    """Measure hashlib vs numpy on one chunk of rows; pick the winner.
+    ~10 ms, once per process, only when a big batch first arrives."""
+    global _calibrated
+    if _calibrated is None:
+        rows = np.arange(_BATCH_MIN * 64, dtype=np.uint32).astype(np.uint8)
+        rows = rows.reshape(_BATCH_MIN, 64)
+        t0 = time.perf_counter()
+        hash_rows_hashlib(rows)
+        t_h = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hash_rows_numpy(rows)
+        t_n = time.perf_counter() - t0
+        _calibrated = "numpy" if t_n < t_h else "hashlib"
+    return _calibrated
 
 
 def hash_rows(pairs: np.ndarray) -> np.ndarray:

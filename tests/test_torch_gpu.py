@@ -20,6 +20,7 @@ from chip_smoke import (
     bls_scalars,
     bls_twist_point_outside_subgroup,
     build_deneb_state,
+    epoch_sweep_inputs,
     host_state_root,
 )
 from lighthouse_tpu_torch import default_device, set_default_device
@@ -27,6 +28,7 @@ from lighthouse_tpu_torch.beacon_chain.chain import _make_persistent
 from lighthouse_tpu_torch.ops import bls381 as K2
 from lighthouse_tpu_torch.ops import bls381_htc as K5
 from lighthouse_tpu_torch.ops import bls381_pairing as K4
+from lighthouse_tpu_torch.ops import epoch_sweep as K7
 from lighthouse_tpu_torch.ops import sha256 as k
 from lighthouse_tpu_torch.types import MinimalEthSpec, build_types
 
@@ -194,3 +196,25 @@ def test_bls_cuda_backend_verdict(cuda, valid):
         bls.set_backend(prev)
     assert got is valid
     assert bls._BACKENDS["host"].verify_signature_sets(sets, random.Random(7)) is valid
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, 65_537])
+@pytest.mark.parametrize("leak", [False, True])
+def test_epoch_sweep_matches_plain(cuda, n, leak):
+    """The epoch-sweep kernel bit-exact with its plain version on the card,
+    with the edge rows of `epoch_sweep_inputs` (FAR_FUTURE_EPOCH epochs,
+    slashed validators withdrawable ahead, penalties above the balance,
+    effective_balance * score of 2^63 and more)."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(n + leak), max(n, 128), leak)
+    cols = {k: v[:n] for k, v in cols.items()}
+    args = K7.sweep_tensors(cols, scalars, cuda)
+    before = K7.COUNTS["launches"]
+    got = K7.epoch_sweep(*args)
+    torch.cuda.synchronize()
+    assert K7.COUNTS["launches"] == before + 1
+    want = K7.epoch_sweep_plain(*args)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    host = K7.epoch_sweep_arrays(cols, scalars)
+    for h, g in zip(host, got):
+        assert np.array_equal(h, g.cpu().numpy().view(np.uint64))

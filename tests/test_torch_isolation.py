@@ -83,6 +83,26 @@ def test_default_cuda_dispatch_never_runs_on_the_cpu():
         set_default_device(prev)
 
 
+def test_default_cuda_epoch_sweep_never_runs_on_the_cpu():
+    from chip_smoke import epoch_sweep_inputs
+    from lighthouse_tpu_torch.ops import epoch_sweep as k7
+
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(1), 256, False)
+    prev = default_device()
+    set_default_device("cuda")
+    try:
+        before = k7.COUNTS["launches"]
+        if torch.cuda.is_available():
+            k7.epoch_sweep_arrays(cols, scalars)
+            assert k7.COUNTS["launches"] == before + 1
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                k7.epoch_sweep_arrays(cols, scalars)
+            assert k7.COUNTS["launches"] == before
+    finally:
+        set_default_device(prev)
+
+
 def test_unknown_device_is_refused():
     with pytest.raises(ValueError):
         set_default_device("meta")
