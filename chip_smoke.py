@@ -16,9 +16,14 @@ each, any failure ends the run with a non-zero exit code:
    card and to hashlib; then each BLS kernel (G1/G2 ladders, segment sums
    and affine conversion, the G2 subgroup check, the multi-pairing,
    hash-to-G2) equal to its plain version at the BLS main path's shapes;
-   each with its time, the plain version's time and its bound; and the
+   each with its time, the plain version's time and its bound; the
    epoch-sweep kernel equal to its plain version at 2^20 validators,
-   in and out of the inactivity leak, with edge rows;
+   in and out of the inactivity leak, with edge rows; and, on the mainnet
+   KZG ceremony's setup, the KZG kernels: the barycentric evaluation at
+   [6, 4096] and [192, 4096], the opening quotient at 4096 lanes (z off
+   the domain and on it) and the G1 Pippenger MSM over the 4096 setup
+   points with edge cases, each equal to its plain version and, for one
+   case, to the host;
 4. main path: the state-root stage of block import. A mainnet-preset Deneb
    BeaconState with 1,000,000 validators is built from ``--seed``,
    given the tree-states representation, and rooted cold through
@@ -39,11 +44,21 @@ each, any failure ends the run with a non-zero exit code:
    runs it: ``per_slot_processing`` (the epoch transition, its sweep on the
    epoch-sweep kernel), ``per_block_processing`` of a full, really signed
    Deneb block (128 attestations of the real committees, the sync
-   aggregate, an execution payload with withdrawals) under VERIFY_BULK on
-   the ``cuda`` backend, and ``hash_tree_root()``; three times, each from a
-   copy of the pre-state. The sweep's balances and scores must equal the
-   numpy sweep's, the post-block root the host-lane fold, the block must
-   be accepted and a copy with one wrong attestation signature refused.
+   aggregate, an execution payload with withdrawals, six blob
+   commitments made on the card) under VERIFY_BULK on the ``cuda``
+   backend, and ``hash_tree_root()``; three times, each from a copy of the
+   pre-state. The sweep's balances and scores must equal the numpy
+   sweep's, the post-block root the host-lane fold, the block must be
+   accepted and a copy with one wrong attestation signature refused;
+7. blob main path: that block's six blobs through the port's ``Kzg`` on
+   the ceremony setup and its ``DataAvailabilityChecker``: (a) commitments
+   and blob proofs (one commitment equal to the host MSM's); (b) the blob
+   sidecars, ``put_block`` then ``put_blobs`` available, the DA verify of
+   the six timed (median of 5), a sidecar with a flipped proof byte
+   refused; (c) a range-sync segment of 32 blocks of six blobs made on the
+   card and verified as one batch (median of 3), a tampered proof refused;
+   (d) the block's 128 data columns with their 768 cell proofs, 64 of them
+   put, reconstructed and available.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -65,9 +80,12 @@ import numpy as np
 import torch
 
 from lighthouse_tpu_torch.beacon_chain.chain import _make_persistent
+from lighthouse_tpu_torch.crypto.kzg import Kzg, TrustedSetup
 from lighthouse_tpu_torch.ops import bls381 as k_g
 from lighthouse_tpu_torch.ops import bls381_htc as k_htc
 from lighthouse_tpu_torch.ops import bls381_pairing as k_pair
+from lighthouse_tpu_torch.ops import fr as k_fr
+from lighthouse_tpu_torch.ops import msm as k_msm
 from lighthouse_tpu_torch.ops import sha256 as k_sha256
 from lighthouse_tpu_torch.ops.cuda_build import ptxas_usage
 from lighthouse_tpu_torch.ssz.merkle import mix_in_length, next_pow_of_two
@@ -104,6 +122,10 @@ BLS_FQ_MULS = {
     "g1_mdbl": 6,  # 1M + 5S, an affine input
     "g1_add": 16,  # 11M + 5S
     "g1_madd": 11,  # 7M + 4S, an affine addend
+    # affine + affine with Montgomery's batch inversion: the slope, its
+    # square and y3 (2M + 1S), 3 products per element of the shared
+    # inversion; plus one fq_inv per batch
+    "g1_affine_add": 6,
     "g2_dbl": 16,
     "g2_add": 43,
     "fq_inv": 381,  # a^(p-2)
@@ -114,6 +136,21 @@ BLS_FQ_MULS = {
     "miller_sqr": 62 * 36,  # f^2 once per step, shared by all pairs
     "final_exp": 7182,
     "hash_to_g2": 4403,  # per message
+}
+# The least 32-bit multiplies of one 8-limb Fr Montgomery multiplication
+# (csrc/fr.cuh): 64 limb products of a*b and 64 of m*r, each a low and a
+# high half, and 8 low halves m = t0 * n'.
+FR_MUL_MIN_OPS = 8 * 8 * 2 * 2 + 8
+# Least Fr multiplications of the KZG functions (derived in
+# csrc/kzg_fr.cu's header), with Montgomery's batch inversion: 3 products
+# per inverted element and one inversion per batch, at the floor of any
+# addition chain for r - 2.
+FR_MULS = {
+    "inv": 255,
+    "batch_inv": 3,  # per element
+    "bary_term": 2,  # p_i * w_i * inv
+    "bary_blob": 14,  # z^n (12 squarings) and 2 final products, per blob
+    "quotient_term": 1,  # (p_i - y) * inv
 }
 
 # The epoch sweep (derived in csrc/epoch_sweep.cu's header): the bytes a
@@ -128,6 +165,18 @@ N_VALIDATORS = 1_000_000
 UPDATES = 8
 # Timed state transitions (epoch boundary + block + root) in phase 6.
 TRANSITION_REPS = 3
+# Blob availability in phase 7: a mainnet Deneb block's blobs
+# (MAX_BLOBS_PER_BLOCK), their gas, a range-sync segment of 32 blocks of
+# six blobs, the columns staged for reconstruction (half of 128), and the
+# timed repetitions of the block's DA verify and of the segment's batch.
+BLOBS_PER_BLOCK = 6
+BLOB_GAS_PER_BLOB = 2**17
+SEGMENT_BLOCKS = 32
+COLUMNS_KEPT = 64
+DA_REPS = 5
+SEGMENT_REPS = 3
+# The mainnet KZG ceremony's setup: the port's packaged trusted_setup.json.
+CEREMONY_SETUP = TrustedSetup.CEREMONY_SEARCH_PATHS[0]
 
 FAR_FUTURE_EPOCH = 2**64 - 1
 
@@ -437,6 +486,49 @@ def bls_sign(sk_sum: int, message: bytes) -> bytes:
     return g2_to_bytes(pt_mul(FQ2, hash_to_g2(message), sk_sum % R))
 
 
+# ---------------------------------------------------------------------------
+# KZG test material from a seed (also used by the CPU and card tests)
+# ---------------------------------------------------------------------------
+
+
+def kzg_blobs(rng: np.random.Generator, m: int, n: int = 4096) -> list[bytes]:
+    """m blobs of n seeded canonical field elements (32-byte big-endian,
+    the top two bits clear, so below r); each blob's first element is
+    r - 1 and its second 0."""
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    data = rng.integers(0, 256, (m, n, 32), dtype=np.uint8)
+    data[:, :, 0] &= 0x3F
+    data[:, 0] = np.frombuffer((R - 1).to_bytes(32, "big"), np.uint8)
+    data[:, 1] = 0
+    return [bytes(b.tobytes()) for b in data]
+
+
+def fr_scalars(rng: np.random.Generator, n: int) -> list[int]:
+    """n seeded scalars below r (255-bit draws reduced mod r)."""
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    return [s % R for s in bls_scalars(rng, n, 255)]
+
+
+def msm_edge_case(rng: np.random.Generator, points: list) -> tuple[list, list[int]]:
+    """Points and scalars for the MSM check: seeded 255-bit scalars over
+    `points`, with zero scalars, r - 1, a point repeated with its scalar
+    (both land in the same buckets: the addition meets P == Q) and a point
+    beside its negation with one scalar (P == -Q)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, pt_neg
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    pts = list(points)
+    sc = fr_scalars(rng, len(pts))
+    if len(pts) >= 8:
+        sc[0] = sc[5] = 0
+        sc[1] = R - 1
+        pts[3], sc[3] = pts[2], sc[2]
+        pts[7], sc[7] = pt_neg(FQ, pts[6]), sc[6]
+    return pts, sc
+
+
 def bls_block(state, types, E, spec, seed: int) -> dict:
     """One mainnet Deneb block's signature sets over `state`'s registry, as
     BlockSignatureVerifier builds them: the block proposal and RANDAO sets
@@ -733,6 +825,8 @@ def phase_build() -> dict:
         "bls381_pairing": k_pair.LIB,
         "bls381_htc": k_htc.LIB,
         "epoch_sweep": k7.LIB,
+        "kzg_fr": k_fr.LIB,
+        "msm": k_msm.LIB,
     }
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:
@@ -832,11 +926,14 @@ def _ladder_fq_muls(scalars, group: str) -> int:
     return sum(d * (k.bit_length() - 1) + a * (bin(k).count("1") - 1) for k in scalars if k)
 
 
-def _bound(fq_muls: int, nbytes: int) -> dict:
-    ops_s = fq_muls * BLS_FQ_MUL_MIN_OPS / INT32_MUL_PER_S
+def _bound(muls: int, nbytes: int, field: str = "fq") -> dict:
+    """The least time for `muls` field multiplications (Fq, or Fr with
+    field="fr") and `nbytes` of memory traffic."""
+    ops_per_mul = {"fq": BLS_FQ_MUL_MIN_OPS, "fr": FR_MUL_MIN_OPS}[field]
+    ops_s = muls * ops_per_mul / INT32_MUL_PER_S
     bytes_s = nbytes / HBM_BYTES_PER_S
     return {
-        "fq_muls": fq_muls,
+        f"{field}_muls": muls,
         "bound_ms_ops": ops_s * 1e3,
         "bound_ms_bytes": bytes_s * 1e3,
         "bound_ms": max(ops_s, bytes_s) * 1e3,
@@ -1207,6 +1304,18 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
     return out, blk["sk_of"]
 
 
+def _device_ms_by_name(prof) -> dict:
+    """Device self time (ms) of each event name of a torch.profiler run."""
+    by_name: dict = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    return by_name
+
+
 def _profile_block(fn) -> dict:
     """One more block verify under torch.profiler: the card's kernel time
     (the sum of device self times) against the host clock, and the kernels
@@ -1221,13 +1330,7 @@ def _profile_block(fn) -> dict:
         wall = time.perf_counter() - t0
     if not ok:
         raise AssertionError("the profiled block verify rejected the valid block")
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    by_name = _device_ms_by_name(prof)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
@@ -1472,15 +1575,15 @@ def epoch_prestate(state, E, spec, seed: int) -> dict:
     }
 
 
-def transition_block(pre, types, E, spec, sk_of: dict, seed: int) -> dict:
+def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: list[bytes]) -> dict:
     """One full mainnet Deneb block for the first slot after `pre`'s epoch
     boundary, built with the port's accessors: the proposer from
     get_beacon_proposer_index, its RANDAO reveal, one Attestation per
     committee of the two previous slots (get_beacon_committee; ~98% of
     bits set), the sync aggregate of the current sync committee (~98% of
     bits set), an execution payload with the parent hash, prev_randao,
-    timestamp and get_expected_withdrawals the state asks for, and no
-    blobs. Every signature is real: signers without a key from phase 5
+    timestamp and get_expected_withdrawals the state asks for, and the
+    blobs' KZG `commitments` (blob gas to match). Every signature is real: signers without a key from phase 5
     get seeded keys, written into `pre`'s registry and the pubkey cache.
     The block's state_root is the post-state's, from a run without
     signature checks; also returns a copy of the block with one
@@ -1584,7 +1687,7 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int) -> dict:
         block_hash=rng.bytes(32),
         transactions=[rng.bytes(int(k)) for k in rng.integers(100, 600, 150)],
         withdrawals=withdrawals,
-        blob_gas_used=0,
+        blob_gas_used=len(commitments) * BLOB_GAS_PER_BLOB,
         excess_blob_gas=0,
     )
     block = T.BeaconBlock(
@@ -1599,6 +1702,7 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int) -> dict:
             attestations=atts,
             sync_aggregate=types.SyncAggregate(sync_committee_bits=sync_bits, sync_committee_signature=sync_sig),
             execution_payload=payload,
+            blob_kzg_commitments=commitments,
         ),
     )
     post = mid.copy()
@@ -1626,13 +1730,14 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int) -> dict:
         "attesting_validators": int(attesters.size),
         "committees_per_slot": len(committees) // 2,
         "withdrawals": len(withdrawals),
+        "blob_commitments": len(commitments),
         "new_keys": len(new),
         "keygen_s": keygen_s,
         "production_s": time.perf_counter() - t0,
     }
 
 
-def phase_transition_main_path(state, types, E, sk_of: dict, seed: int) -> dict:
+def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitments: list[bytes]) -> tuple[dict, bytes]:
     """Block import across an epoch boundary on the 1M-validator state, as
     a node runs it: per_slot_processing over the boundary (the epoch
     transition, the sweep on the epoch-sweep kernel), per_block_processing
@@ -1667,7 +1772,7 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int) -> dict:
     arrays = altair.EpochArrays(pre, E, columns=registry_columns_for(pre))
     if not altair._device_sweep_applicable(pre, arrays, spec, E):
         raise AssertionError("the host guard keeps the pre-state off the epoch-sweep kernel")
-    blk = transition_block(pre, types, E, spec, sk_of, seed)
+    blk = transition_block(pre, types, E, spec, sk_of, seed, commitments)
 
     # the main path: counts at zero just before, read just after
     torch.cuda.synchronize()
@@ -1821,6 +1926,391 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int) -> dict:
         },
     }
     emit(out)
+    return out, blk["signed"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (KZG) and phase 7: blob data availability
+# ---------------------------------------------------------------------------
+
+KZG_KERNELS = {
+    # name: (module, source, the JAX function it replaces)
+    "barycentric_eval": (k_fr, "kzg_fr.cu", "lighthouse_tpu/ops/fr.py:156"),
+    "quotient": (k_fr, "kzg_fr.cu", "lighthouse_tpu/ops/fr.py:189"),
+    "msm": (k_msm, "msm.cu", "lighthouse_tpu/ops/msm.py:94"),
+}
+
+
+def kzg_counts() -> dict:
+    return {n: mod.COUNTS[n] for n, (mod, _, _) in KZG_KERNELS.items()} | {"multi_pairing": k_pair.COUNTS["multi_pairing"]}
+
+
+def reset_kzg_counts() -> None:
+    for mod in (k_fr, k_msm, k_pair):
+        mod.reset_counts()
+
+
+def ceremony_kzg() -> Kzg:
+    """A Kzg on the mainnet ceremony's setup, read from CEREMONY_SETUP and
+    nothing else (no environment override, no fallback), and refused if
+    it is the insecure dev setup, whose proofs skip the kernels."""
+    from lighthouse_tpu_torch.das.proofs import _dev_secret
+
+    setup = TrustedSetup.from_json(CEREMONY_SETUP)
+    if setup.n != 4096 or _dev_secret(setup) is not None:
+        raise AssertionError(f"{CEREMONY_SETUP} is not the mainnet ceremony's setup")
+    return Kzg(setup)
+
+
+def msm_fq_muls(scalars: list[int]) -> dict:
+    """Pippenger's least Fq multiplications for these scalars (csrc/msm.cu's
+    header) at its best window c. Buckets: each nonzero digit after the
+    first in its bucket is one affine addition, the additions of a bucket
+    a tree whose rounds share one inversion across all buckets. Running
+    sums: per window 2^c - 2 steps, each a mixed addition (the bucket sum
+    is affine) and a Jacobian one, or both as affine additions batched
+    across the windows, whichever is fewer. Horner: c doublings and one
+    Jacobian addition per window but the top one."""
+    raw = np.frombuffer(b"".join(s.to_bytes(32, "big") for s in scalars), np.uint8).reshape(-1, 32)
+    bits = np.unpackbits(raw, axis=1)[:, ::-1][:, :255].astype(np.int64)  # least significant first
+    m = BLS_FQ_MULS
+    best = None
+    for c in range(1, 17):
+        nwin = -(-255 // c)
+        b = np.pad(bits, ((0, 0), (0, nwin * c - 255))).reshape(len(scalars), nwin, c)
+        dig = (b << np.arange(c)).sum(-1)
+        adds, deepest = 0, 0
+        for w in range(nwin):
+            cnt = np.bincount(dig[:, w], minlength=1 << c)[1:]
+            adds += int(cnt.sum() - (cnt > 0).sum())
+            deepest = max(deepest, int(cnt.max()))
+        steps = (1 << c) - 2
+        running = min(
+            steps * nwin * (m["g1_madd"] + m["g1_add"]),
+            steps * 2 * (nwin * m["g1_affine_add"] + m["fq_inv"]),
+        )
+        muls = (
+            adds * m["g1_affine_add"]
+            + (deepest - 1).bit_length() * m["fq_inv"]
+            + running
+            + (nwin - 1) * (c * m["g1_dbl"] + m["g1_add"])
+        )
+        if best is None or muls < best[1]:
+            best = (c, muls)
+    return {"window": best[0], "fq_muls": best[1]}
+
+
+def _ptxas_of(lib, *kernels: str) -> dict:
+    usage = ptxas_usage(lib.info.get("ptxas", ""))
+    return {k: v for k, v in usage.items() if any(name in k for name in kernels)}
+
+
+def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
+    """The KZG kernels at the main path's shapes, each equal to its plain
+    version on the card and to the host for one case: the barycentric
+    evaluation at [6, 4096] (a block) and [192, 4096] (a segment), the
+    quotient at 4096 lanes (z off the domain and on it), the MSM over the
+    4096 setup points with edge cases; with times, plain times and
+    bounds."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    dev = kzg._dev.dev
+    rng = np.random.default_rng(seed + 17)
+    setup = kzg.setup
+    n = setup.n
+    roots_t = kzg._dev.roots
+    out = {"phase": "kzg_kernel_checks", "domain": n, "kernels": {}}
+
+    def check(name, kernel, plain, fr_muls, nbytes, reps, **extra):
+        got = kernel()
+        want, plain_ms = _plain_ms(plain)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel differs from its plain version (max_abs_err {err})")
+        ms = _time_ms(kernel, reps=reps, warmup=1)
+        bound = _bound(fr_muls, nbytes, "fr") if fr_muls is not None else extra.pop("bound")
+        out["kernels"][name] = {
+            "equal_plain": True,
+            "max_abs_err": err,
+            "rows_differing": int((got != want).reshape(got.shape[0], -1).any(-1).sum()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "library_ms": None,
+            **bound,
+            **extra,
+        }
+        return got
+
+    for m in (BLOBS_PER_BLOCK, BLOBS_PER_BLOCK * SEGMENT_BLOCKS):
+        words = np.stack([k_fr.words_from_bytes(b, n) for b in kzg_blobs(rng, m, n)])
+        zs = fr_scalars(rng, m)
+        ev, zt = k_fr.as_i32(words).to(dev), k_fr.as_i32(k_fr.fr_to_words(zs)).to(dev)
+        got = check(
+            f"barycentric_eval[{m},{n}]",
+            lambda: k_fr.barycentric_eval(ev, roots_t, zt),
+            lambda: k_fr.barycentric_eval_plain(ev, roots_t, zt),
+            (FR_MULS["batch_inv"] + FR_MULS["bary_term"]) * m * n + FR_MULS["inv"] + FR_MULS["bary_blob"] * m,
+            ev.numel() * 4 + roots_t.numel() * 4 + 2 * zt.numel() * 4,
+            reps=5 if m == BLOBS_PER_BLOCK else 3,
+        )
+        if m == BLOBS_PER_BLOCK:
+            y0 = kzg._evaluate_host(k_fr.fr_from_words(words[0]), zs[0])
+            if k_fr.fr_from_words(got[:1].cpu().numpy())[0] != y0:
+                raise AssertionError("barycentric_eval differs from the host's _evaluate_host")
+
+    words = k_fr.words_from_bytes(kzg_blobs(rng, 1, n)[0], n)
+    ev = k_fr.as_i32(words).to(dev)
+    for label, z in (("off_domain", fr_scalars(rng, 1)[0]), ("on_domain", setup.roots_brp[5])):
+        y = fr_scalars(rng, 1)[0]
+        zy = k_fr.as_i32(k_fr.fr_to_words([z, y])).to(dev)
+        got = check(
+            f"quotient[{n}]" + ("" if label == "off_domain" else ":on_domain"),
+            lambda: k_fr.quotient(ev, roots_t, zy[0], zy[1]),
+            lambda: k_fr.quotient_plain(ev, roots_t, zy[0], zy[1]),
+            (FR_MULS["batch_inv"] + FR_MULS["quotient_term"]) * n + FR_MULS["inv"],
+            2 * ev.numel() * 4 + roots_t.numel() * 4 + zy.numel() * 4,
+            reps=5,
+        )
+        p = k_fr.fr_from_words(words)
+        q = k_fr.fr_from_words(got.cpu().numpy())
+        want = [0 if w == z else (pi - y) * pow(w - z, R - 2, R) % R for pi, w in zip(p, setup.roots_brp)]
+        if q != want:
+            raise AssertionError(f"quotient ({label}) differs from the host formula")
+
+    pts, sc = msm_edge_case(rng, setup.g1_lagrange)
+    pts_t = torch.from_numpy(k_g.g1_to_limbs(pts)).to(dev)
+    sc_t = k_fr.as_i32(k_fr.fr_to_words(sc)).to(dev)
+    least = msm_fq_muls(sc)
+    got = check(
+        f"msm[{n}]",
+        lambda: k_msm.g1_msm(pts_t, sc_t),
+        lambda: k_msm.g1_msm_plain(pts_t, sc_t),
+        None,
+        0,
+        reps=5,
+        bound=_bound(least["fq_muls"], pts_t.numel() * 8 + sc_t.numel() * 4 + 36 * 8),
+        best_window=least["window"],
+    )
+    t0 = time.perf_counter()
+    if not pt_eq(FQ, k_g.g1_from_limbs(got.cpu().numpy())[0], msm(FQ, pts, sc)):
+        raise AssertionError("msm differs from the host Pippenger")
+    out["kernels"][f"msm[{n}]"]["host_msm_s"] = time.perf_counter() - t0
+    zero = k_msm.g1_msm(pts_t, torch.zeros_like(sc_t))
+    if int(zero[2].abs().sum()):
+        raise AssertionError("msm of zero scalars is not the infinity")
+    out["registers"] = {
+        "kzg_fr.cu": _ptxas_of(k_fr.LIB, "bary", "quotient"),
+        "msm.cu": _ptxas_of(k_msm.LIB, "msm_"),
+    }
+    emit(out)
+    return out
+
+
+def _event_times(fn) -> tuple[float, dict, float]:
+    """(wall seconds, {launcher: ms}, copies ms) of one fn(): every launch
+    of the KZG and pairing kernels, and every copy of words to the card
+    through `_DeviceKzg.to_device`, timed by CUDA events around it."""
+    from lighthouse_tpu_torch.crypto.kzg import _DeviceKzg
+
+    marks = []
+
+    def timed(name, call):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = call(*args, **kwargs)
+            end.record()
+            marks.append((name(args), start, end))
+            return res
+
+        return run
+
+    libs = (k_fr.LIB, k_msm.LIB, k_pair.LIB)
+    for lib in libs:
+        lib.launch = timed(lambda args: args[0], lib.launch)
+    to_device = _DeviceKzg.to_device
+    _DeviceKzg.to_device = timed(lambda args: "copies", to_device)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for lib in libs:
+            del lib.launch  # the class's method again
+        _DeviceKzg.to_device = to_device
+    ms: dict = {}
+    for name, start, end in marks:
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+    return wall, ms, ms.pop("copies", 0.0)
+
+
+def _time_split(fn) -> dict:
+    """fn() split into the card's kernels, the copies of words to the card
+    and the host (the rest of the wall time), by `_event_times`."""
+    wall, kernels, copies = _event_times(fn)
+    kernel_ms = sum(kernels.values())
+    return {
+        "wall_s": wall,
+        "kernels_ms": kernels,
+        "device_kernel_ms": kernel_ms,
+        "copies_ms": copies,
+        "host_ms": wall * 1e3 - kernel_ms - copies,
+        "device_busy_share": (kernel_ms + copies) / (wall * 1e3),
+    }
+
+
+def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E, seed: int) -> dict:
+    """Blob data availability at mainnet width on the ceremony setup, as a
+    node runs it, through the port's Kzg and DataAvailabilityChecker:
+    (a) produce the block's six commitments and blob proofs; (b) the block
+    route: build_blob_sidecars of phase 6's signed block, put_block, then
+    put_blobs -> available (DA verify of the six sidecars timed, median of
+    5), a sidecar with one flipped proof byte refused; (c) a range-sync
+    segment of 32 blocks of six blobs, produced on the card and verified
+    as one batch (median of 3), a tampered proof refused; (d) the column
+    route: build_data_column_sidecars (128 columns, 768 cell proofs), then
+    put_columns of 64 columns -> reconstruction -> available."""
+    import statistics
+
+    from lighthouse_tpu_torch.beacon_chain.data_availability import (
+        DataAvailabilityChecker,
+        InvalidComponentsError,
+    )
+    from lighthouse_tpu_torch.crypto.bls12_381.curve import g1_to_bytes
+    from lighthouse_tpu_torch.crypto.kzg import _blob_to_evals, _g1_msm
+    from lighthouse_tpu_torch.das import build_data_column_sidecars, verify_data_column_sidecars
+    from lighthouse_tpu_torch.ssz.merkle_proof import build_blob_sidecars
+
+    T = types.types_for_fork("deneb")
+    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
+    root = signed.message.hash_tree_root()
+    slot = int(signed.message.slot)
+    block_commitments = [bytes(c) for c in signed.message.body.blob_kzg_commitments]
+    rng = np.random.default_rng(seed + 19)
+    steps, launches = {}, {}
+
+    def step(name, fn):
+        before = kzg_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        steps[name + "_s"] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in kzg_counts().items()}
+        return res
+
+    # the main path: counts at zero just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kzg_counts()
+    # (a) produce
+    commitments = step("a_commitments", lambda: [kzg.blob_to_kzg_commitment(b) for b in blobs])
+    proofs = step("a_proofs", lambda: [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)])
+    # (b) the block route
+    sidecars = step("b_build_sidecars", lambda: build_blob_sidecars(signed, blobs, kzg, E))
+    chk = DataAvailabilityChecker(kzg, E)
+    first = chk.put_block(root, signed, slot=slot)
+    avail = step("b_put_blobs", lambda: chk.put_blobs(root, sidecars, slot=slot))
+    da_s = []
+    for _ in range(DA_REPS):
+        t0 = time.perf_counter()
+        chk.verify_blob_sidecars(sidecars, root)
+        torch.cuda.synchronize()
+        da_s.append(time.perf_counter() - t0)
+    # (c) a range-sync segment
+    seg_blobs = kzg_blobs(rng, len(blobs) * SEGMENT_BLOCKS, kzg.setup.n)
+    seg_c = step("c_commitments", lambda: [kzg.blob_to_kzg_commitment(b) for b in seg_blobs])
+    seg_p = step("c_proofs", lambda: [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(seg_blobs, seg_c)])
+    seg_s, seg_ok = [], []
+    for _ in range(SEGMENT_REPS):
+        t0 = time.perf_counter()
+        seg_ok.append(kzg.verify_blob_kzg_proof_batch(seg_blobs, seg_c, seg_p))
+        torch.cuda.synchronize()
+        seg_s.append(time.perf_counter() - t0)
+    # (d) the column route
+    columns = step("d_build_columns", lambda: build_data_column_sidecars(signed, blobs, kzg, E))
+    kept = sorted(np.random.default_rng(seed + 23).choice(E.NUMBER_OF_COLUMNS, COLUMNS_KEPT, replace=False).tolist())
+    chk_cols = DataAvailabilityChecker(kzg, E)
+    chk_cols.put_block(root, signed, slot=slot)
+    col_avail = step("d_put_columns", lambda: chk_cols.put_columns(root, [columns[j] for j in kept], slot=slot))
+    counts = kzg_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"the blob main path launched no {missing}")
+
+    # checks, after the counts are read
+    if commitments != block_commitments:
+        raise AssertionError("(a) the commitments differ from the block's")
+    t0 = time.perf_counter()
+    host_c = g1_to_bytes(_g1_msm(_blob_to_evals(blobs[0], kzg.setup.n), kzg.setup.g1_lagrange))
+    host_msm_s = time.perf_counter() - t0
+    if host_c != commitments[0]:
+        raise AssertionError("(a) commitment 0 differs from the host's _g1_msm")
+    if not kzg.verify_blob_kzg_proof_batch(blobs, commitments, proofs):
+        raise AssertionError("(a) the block's blob proofs do not verify")
+    if first.available or not avail.available or len(avail.blobs) != len(blobs):
+        raise AssertionError(f"(b) availability: before the blobs {first.available}, after {avail.available}")
+    if [bytes(sc.kzg_proof) for sc in sidecars] != proofs:
+        raise AssertionError("(b) the sidecars' proofs differ from (a)'s")
+    k = len(sidecars) // 2
+    bad = types.BlobSidecar.deserialize(sidecars[k].serialize())
+    flipped = bytearray(bytes(bad.kzg_proof))
+    flipped[0] ^= 0x20  # the compressed point's sign bit: a valid point, -proof
+    bad.kzg_proof = bytes(flipped)
+    try:
+        DataAvailabilityChecker(kzg, E).put_blobs(root, [*sidecars[:k], bad, *sidecars[k + 1 :]], slot=slot)
+        raise AssertionError("(b) a sidecar with a flipped proof byte was accepted")
+    except InvalidComponentsError:
+        pass
+    if not all(seg_ok):
+        raise AssertionError("(c) the segment's batch was refused")
+    tampered = list(seg_p)
+    tampered[len(seg_p) // 2] = seg_p[len(seg_p) // 2 - 1]
+    if kzg.verify_blob_kzg_proof_batch(seg_blobs, seg_c, tampered):
+        raise AssertionError("(c) a segment with a tampered proof was accepted")
+    if len(columns) != E.NUMBER_OF_COLUMNS or not col_avail.available or len(col_avail.columns) != E.NUMBER_OF_COLUMNS:
+        raise AssertionError("(d) the column route did not reach availability")
+    rebuilt = {int(sc.index): sc for sc in col_avail.columns}
+    if any(rebuilt[j].serialize() != columns[j].serialize() for j in range(E.NUMBER_OF_COLUMNS)):
+        raise AssertionError("(d) the reconstructed columns differ from the built ones")
+    verify_data_column_sidecars(columns[:8], kzg, E)
+
+    # one more rep of (b) and (c), its launches and copies timed, after the counts
+    split_b = _time_split(lambda: chk.verify_blob_sidecars(sidecars, root))
+    split_c = _time_split(lambda: kzg.verify_blob_kzg_proof_batch(seg_blobs, seg_c, seg_p))
+    da_med, seg_med = statistics.median(da_s), statistics.median(seg_s)
+    out = {
+        "phase": "blob_main_path",
+        "setup": os.path.relpath(CEREMONY_SETUP, os.path.dirname(os.path.abspath(__file__))),
+        "blobs_per_block": len(blobs),
+        "segment_blobs": len(seg_blobs),
+        "columns": E.NUMBER_OF_COLUMNS,
+        "columns_kept": len(kept),
+        "steps_s": steps,
+        "da_verify_s": da_s,
+        "da_verify_median_s": da_med,
+        "da_blobs_per_s": len(blobs) / da_med,
+        "segment_verify_s": seg_s,
+        "segment_verify_median_s": seg_med,
+        "segment_blobs_per_s": len(seg_blobs) / seg_med,
+        "launches": counts,
+        "launches_per_step": launches,
+        "max_memory_allocated_bytes": peak,
+        "host_commitment_msm_s": host_msm_s,
+        "split_b_da_verify": split_b,
+        "split_c_segment_verify": split_c,
+        "checks": {
+            "(a) commitments equal the block's, commitment 0 the host's, proofs verify": True,
+            "(b) available after put_blobs; flipped proof byte -> InvalidComponentsError": True,
+            "(c) segment accepted; tampered proof refused": True,
+            f"(d) {len(kept)} of {E.NUMBER_OF_COLUMNS} columns reconstruct all -> available": True,
+        },
+    }
+    emit(out)
     return out
 
 
@@ -1851,10 +2341,17 @@ def main(argv=None) -> int:
     checks = phase_kernel_checks(args.seed)
     bls_checks = phase_bls_kernel_checks(args.seed)
     sweep_check = phase_epoch_sweep_check(args.seed)
+    kzg = ceremony_kzg()
+    kzg_checks = phase_kzg_kernel_checks(kzg, args.seed)
     main_path, state = phase_main_path(N_VALIDATORS, UPDATES, args.seed)
     types = build_types(MainnetEthSpec)
     bls_path, sk_of = phase_bls_main_path(state, types, MainnetEthSpec, args.seed)
-    transition = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed)
+    # the block of phase 6 carries the six blobs' commitments, made on the
+    # card (phase 7 makes them again inside its counted run)
+    blobs = kzg_blobs(np.random.default_rng(args.seed + 29), BLOBS_PER_BLOCK)
+    commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+    transition, signed = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
+    blob_path = phase_blob_main_path(kzg, blobs, signed, types, MainnetEthSpec, args.seed)
 
     emit(
         {
@@ -1903,6 +2400,27 @@ def main(argv=None) -> int:
                     "bound_by": sweep_check["bound_by"],
                     "library_ms": None,
                 }
+            ]
+            + [
+                {
+                    "name": name,
+                    "route": "cuda",
+                    "source": f"lighthouse_tpu_torch/csrc/{src}",
+                    "replaces": replaces,
+                    "launches": blob_path["launches"][name],
+                    "max_abs_err": max(
+                        c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
+                    ),
+                    **{
+                        key: kzg_checks["kernels"][case][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by")
+                    },
+                    "library_ms": None,
+                }
+                for (name, (_, src, replaces)), case in zip(
+                    KZG_KERNELS.items(),
+                    (f"barycentric_eval[{BLOBS_PER_BLOCK},4096]", "quotient[4096]", "msm[4096]"),
+                )
             ]
         }
     )

@@ -218,3 +218,95 @@ def test_epoch_sweep_matches_plain(cuda, n, leak):
     host = K7.epoch_sweep_arrays(cols, scalars)
     for h, g in zip(host, got):
         assert np.array_equal(h, g.cpu().numpy().view(np.uint64))
+
+
+# ---------------------------------------------------------------------------
+# KZG kernels (K8, K9) against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+
+def _domain(n):
+    from lighthouse_tpu_torch.crypto.kzg import _bit_reverse_permute, _root_of_unity
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    w = _root_of_unity(n)
+    return _bit_reverse_permute([pow(w, i, R) for i in range(n)])
+
+
+@pytest.mark.parametrize("m, n", [(3, 256), (6, 4096)])
+def test_kzg_barycentric_matches_plain_and_host(cuda, m, n):
+    from chip_smoke import fr_scalars, kzg_blobs
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    rng = np.random.default_rng(m)
+    roots = _domain(n)
+    words = np.stack([K8.words_from_bytes(b, n) for b in kzg_blobs(rng, m, n)])
+    zs = fr_scalars(rng, m)
+    args = [K8.as_i32(a).to(cuda) for a in (words, K8.mont_limbs(roots), K8.fr_to_words(zs))]
+    got = _launched(K8.COUNTS, "barycentric_eval", lambda: K8.barycentric_eval(*args))
+    assert torch.equal(got, K8.barycentric_eval_plain(*args))
+    p = K8.fr_from_words(words[0])
+    z = zs[0]
+    want = sum(pi * w * pow(z - w, R - 2, R) for pi, w in zip(p, roots)) % R
+    want = want * (pow(z, n, R) - 1) * pow(n, R - 2, R) % R
+    assert K8.fr_from_words(got.cpu().numpy())[0] == want
+
+
+@pytest.mark.parametrize("on_domain", [False, True])
+def test_kzg_quotient_matches_plain_and_host(cuda, on_domain):
+    from chip_smoke import fr_scalars, kzg_blobs
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    n = 4096
+    rng = np.random.default_rng(20 + on_domain)
+    roots = _domain(n)
+    words = K8.words_from_bytes(kzg_blobs(rng, 1, n)[0], n)
+    z = roots[77] if on_domain else fr_scalars(rng, 1)[0]
+    y = fr_scalars(rng, 1)[0]
+    zy = K8.as_i32(K8.fr_to_words([z, y])).to(cuda)
+    args = (K8.as_i32(words).to(cuda), K8.as_i32(K8.mont_limbs(roots)).to(cuda), zy[0], zy[1])
+    got = _launched(K8.COUNTS, "quotient", lambda: K8.quotient(*args))
+    assert torch.equal(got, K8.quotient_plain(*args))
+    q = K8.fr_from_words(got.cpu().numpy())
+    p = K8.fr_from_words(words)
+    for i in (0, 1, 77, n - 1):
+        assert q[i] == (0 if roots[i] == z else (p[i] - y) * pow(roots[i] - z, R - 2, R) % R)
+
+
+@pytest.mark.parametrize("n", [1, 37, 300])
+def test_msm_matches_plain_and_host(cuda, n):
+    from chip_smoke import msm_edge_case
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq
+    from lighthouse_tpu_torch.ops import fr as K8
+    from lighthouse_tpu_torch.ops import msm as K9
+
+    rng = np.random.default_rng(30 + n)
+    pts, sc = msm_edge_case(rng, bls_g1_points(rng, n))
+    pt = _g1(pts, cuda)
+    s = K8.as_i32(K8.fr_to_words(sc)).to(cuda)
+    got = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm(pt, s))
+    assert torch.equal(got, K9.g1_msm_plain(pt, s))
+    assert pt_eq(FQ, K2.g1_from_limbs(got.cpu().numpy())[0], msm(FQ, pts, sc))
+    zero = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm(pt, torch.zeros_like(s)))
+    assert int(zero[2].abs().sum()) == 0  # infinity
+
+
+def test_kzg_six_blobs_on_the_ceremony_setup(cuda):
+    """Six mainnet-size blobs committed, proven and batch-verified on the
+    card against the mainnet ceremony's setup; a swapped proof refused."""
+    from chip_smoke import ceremony_kzg, kzg_blobs
+    from lighthouse_tpu_torch.ops import fr as K8
+    from lighthouse_tpu_torch.ops import msm as K9
+
+    kzg = ceremony_kzg()
+    blobs = kzg_blobs(np.random.default_rng(40), 6)
+    before = (K8.COUNTS["barycentric_eval"], K8.COUNTS["quotient"], K9.COUNTS["msm"])
+    commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+    proofs = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)]
+    assert kzg.verify_blob_kzg_proof_batch(blobs, commitments, proofs) is True
+    after = (K8.COUNTS["barycentric_eval"], K8.COUNTS["quotient"], K9.COUNTS["msm"])
+    assert [a - b for a, b in zip(after, before)] == [7, 6, 12]
+    swapped = proofs[1:2] + proofs[:1] + proofs[2:]
+    assert kzg.verify_blob_kzg_proof_batch(blobs, commitments, swapped) is False

@@ -106,3 +106,29 @@ def test_default_cuda_epoch_sweep_never_runs_on_the_cpu():
 def test_unknown_device_is_refused():
     with pytest.raises(ValueError):
         set_default_device("meta")
+
+
+def test_default_cuda_kzg_never_runs_on_the_cpu():
+    """A Kzg on the default device `cuda` runs on a card or raises at
+    construction; the host bigint engine is only had by asking for it."""
+    from lighthouse_tpu_torch.crypto.kzg import Kzg, TrustedSetup
+    from lighthouse_tpu_torch.ops import fr as k8
+    from lighthouse_tpu_torch.ops import msm as k9
+
+    setup = TrustedSetup.insecure_dev(4)
+    prev = default_device()
+    set_default_device("cuda")
+    try:
+        if torch.cuda.is_available():
+            assert Kzg(setup)._dev.dev.type == "cuda"
+        else:
+            before = (dict(k8.COUNTS), dict(k9.COUNTS))
+            with pytest.raises(RuntimeError, match="cuda"):
+                Kzg(setup)
+            with pytest.raises(RuntimeError, match="cuda"):
+                Kzg(setup, device="cuda")
+            assert (k8.COUNTS, k9.COUNTS) == before
+        assert Kzg(setup, device=False)._dev is None
+        assert Kzg(setup, device="cpu")._dev.dev.type == "cpu"
+    finally:
+        set_default_device(prev)
