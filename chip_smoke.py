@@ -23,7 +23,10 @@ each, any failure ends the run with a non-zero exit code:
    [6, 4096] and [192, 4096], the opening quotient at 4096 lanes (z off
    the domain and on it) and the G1 Pippenger MSM over the 4096 setup
    points with edge cases, each equal to its plain version and, for one
-   case, to the host;
+   case, to the host; then the multi-device step's kernels: the Merkle
+   subtree reduction at 2^20 leaves and at 8 roots, and the 256-bit G1
+   ladder at 1, 37 and 4096 points (scalars 0, 1 and r - 1 among them),
+   each equal to its plain version and to the host;
 4. main path: the state-root stage of block import. A mainnet-preset Deneb
    BeaconState with 1,000,000 validators is built from ``--seed``,
    given the tree-states representation, and rooted cold through
@@ -58,7 +61,17 @@ each, any failure ends the run with a non-zero exit code:
    refused; (c) a range-sync segment of 32 blocks of six blobs made on the
    card and verified as one batch (median of 3), a tampered proof refused;
    (d) the block's 128 data columns with their 768 cell proofs, 64 of them
-   put, reconstructed and available.
+   put, reconstructed and available;
+8. the multi-device step on a process group of one rank (NCCL; one card):
+   (a) the sharded Merkle root of the registry's 1,000,000 validator roots
+   (zero-padded to 2^20 leaves, then hashed up to the list's limit with
+   its length mixed in), equal to the state's own validators root and a
+   hashlib fold; (b) the sharded RLC sum of 4,096 seeded G1 points (a
+   range-sync segment's 32 blocks of 128 attestation sets) with 64-bit
+   scalars, equal to its plain version and, on 131 points, to the host;
+   (c) the ladder MSM of one seeded blob over the ceremony's 4,096
+   Lagrange points, equal to K9 Pippenger's commitment and the plain
+   ladder; (d) ``entry.dryrun_multichip(1, device="cuda")``.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -85,9 +98,11 @@ from lighthouse_tpu_torch.ops import bls381 as k_g
 from lighthouse_tpu_torch.ops import bls381_htc as k_htc
 from lighthouse_tpu_torch.ops import bls381_pairing as k_pair
 from lighthouse_tpu_torch.ops import fr as k_fr
+from lighthouse_tpu_torch.ops import merkle_sharded as k_ms
 from lighthouse_tpu_torch.ops import msm as k_msm
 from lighthouse_tpu_torch.ops import sha256 as k_sha256
 from lighthouse_tpu_torch.ops.cuda_build import ptxas_usage
+from lighthouse_tpu_torch.parallel import host_pool
 from lighthouse_tpu_torch.ssz.merkle import mix_in_length, next_pow_of_two
 from lighthouse_tpu_torch.types import MainnetEthSpec, build_types
 from lighthouse_tpu_torch.utils.hash import ZERO_HASHES
@@ -175,6 +190,15 @@ SEGMENT_BLOCKS = 32
 COLUMNS_KEPT = 64
 DA_REPS = 5
 SEGMENT_REPS = 3
+# The multi-device step in phase 8, on one rank: the registry's validator
+# roots padded to a power of two of leaves (the list's limit, 2^40, above
+# them), a range-sync segment's attestation sets (32 blocks of 128) for
+# the RLC sum, its first block's sets checked on the host, and the timed
+# repetitions of each step.
+SHARDED_LEAVES = 1 << 20
+RLC_POINTS = SEGMENT_BLOCKS * 128
+RLC_HOST_POINTS = 131
+SHARDED_REPS = 5
 # The mainnet KZG ceremony's setup: the port's packaged trusted_setup.json.
 CEREMONY_SETUP = TrustedSetup.CEREMONY_SEARCH_PATHS[0]
 
@@ -827,6 +851,7 @@ def phase_build() -> dict:
         "epoch_sweep": k7.LIB,
         "kzg_fr": k_fr.LIB,
         "msm": k_msm.LIB,
+        "merkle_subtree": k_ms.LIB,
     }
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as pool:
@@ -946,7 +971,7 @@ def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def _plain_ms(fn):
-    """(result, ms) of one call of a plain version, by CUDA events."""
+    """(result, ms) of one call (of a plain version, mostly), by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1962,7 +1987,7 @@ def ceremony_kzg() -> Kzg:
     return Kzg(setup)
 
 
-def msm_fq_muls(scalars: list[int]) -> dict:
+def msm_fq_muls(scalars: list[int], bits: int = 255) -> dict:
     """Pippenger's least Fq multiplications for these scalars (csrc/msm.cu's
     header) at its best window c. Buckets: each nonzero digit after the
     first in its bucket is one affine addition, the additions of a bucket
@@ -1970,14 +1995,15 @@ def msm_fq_muls(scalars: list[int]) -> dict:
     sums: per window 2^c - 2 steps, each a mixed addition (the bucket sum
     is affine) and a Jacobian one, or both as affine additions batched
     across the windows, whichever is fewer. Horner: c doublings and one
-    Jacobian addition per window but the top one."""
+    Jacobian addition per window but the top one. `bits`: the scalars'
+    width (255 for Fr, 64 for the RLC draws)."""
     raw = np.frombuffer(b"".join(s.to_bytes(32, "big") for s in scalars), np.uint8).reshape(-1, 32)
-    bits = np.unpackbits(raw, axis=1)[:, ::-1][:, :255].astype(np.int64)  # least significant first
+    low = np.unpackbits(raw, axis=1)[:, ::-1][:, :bits].astype(np.int64)  # least significant first
     m = BLS_FQ_MULS
     best = None
     for c in range(1, 17):
-        nwin = -(-255 // c)
-        b = np.pad(bits, ((0, 0), (0, nwin * c - 255))).reshape(len(scalars), nwin, c)
+        nwin = -(-bits // c)
+        b = np.pad(low, ((0, 0), (0, nwin * c - bits))).reshape(len(scalars), nwin, c)
         dig = (b << np.arange(c)).sum(-1)
         adds, deepest = 0, 0
         for w in range(nwin):
@@ -2314,6 +2340,281 @@ def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (the multi-device step's kernels) and phase 8: the sharded step
+# ---------------------------------------------------------------------------
+
+
+def _merkle_bound(leaves: int) -> dict:
+    """K10's least time: leaves - 1 two-to-one hashes at SHA256_MIN_OPS
+    each, against the leaves read once and the root written once."""
+    ops_s = SHA256_MIN_OPS * (leaves - 1) / INT32_OPS_PER_S
+    bytes_s = (leaves + 1) * 32 / HBM_BYTES_PER_S
+    return {
+        "min_ops_per_hash": SHA256_MIN_OPS,
+        "bound_ms_ops": ops_s * 1e3,
+        "bound_ms_bytes": bytes_s * 1e3,
+        "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+    }
+
+
+def _subtree_root_plain(nodes: torch.Tensor) -> torch.Tensor:
+    """The whole reduction of a power-of-two run through the plain version."""
+    depth = (nodes.shape[0] - 1).bit_length()
+    return k_ms.merkle_subtree_roots_plain(nodes, depth) if depth else nodes
+
+
+def _rows_differing(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got != want).reshape(got.shape[0], -1).any(-1).sum())
+
+
+def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
+    """The multi-device step's kernels at its main path's shapes, equal to
+    their plain versions on the card (0 rows differing) and to the host:
+    the Merkle subtree reduction at 2^20 leaves (three launches: 9, 9 and 2
+    levels) and at 8 roots (the fold); the 256-bit G1 ladder at 1, 37 and
+    4096 points with scalars 0, 1 and r - 1 among them, with times, plain
+    times and bounds."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, pt_eq, pt_mul
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 41)
+    out = {"phase": "sharded_kernel_checks", "kernels": {}}
+
+    for n in (SHARDED_LEAVES, 8):
+        leaves_np = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        leaves = torch.from_numpy(leaves_np).to(dev)
+        got = k_ms.subtree_root(leaves)
+        want, plain_ms = _plain_ms(lambda: _subtree_root_plain(leaves))
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"merkle_subtree_roots differs from its plain version at {n} leaves (max_abs_err {err})")
+        fold = leaves_np
+        while fold.shape[0] > 1:
+            fold = hash_rows_hashlib(fold.reshape(-1, 64))
+        if not np.array_equal(got.cpu().numpy()[0], fold[0]):
+            raise AssertionError(f"merkle_subtree_roots differs from a hashlib fold at {n} leaves")
+        out["kernels"][f"merkle_subtree_roots[{n}]"] = {
+            "equal_plain": True,
+            "equal_hashlib_fold": True,
+            "max_abs_err": err,
+            "rows_differing": _rows_differing(got, want),
+            "launches_per_call": -(-(n - 1).bit_length() // k_ms.MAX_LEVELS),
+            "ms": _time_ms(lambda: k_ms.subtree_root(leaves), reps=20 if n > 8 else 50),
+            "plain_ms": plain_ms,
+            "library_ms": None,
+            **_merkle_bound(n),
+        }
+
+    setup_pts = kzg._dev.points
+    for n in (1, 37, kzg.setup.n):
+        sc = fr_scalars(rng, n)
+        sc[: min(n, 3)] = [R - 1, 0, 1][: min(n, 3)]
+        if n == kzg.setup.n:
+            pt = setup_pts  # the ladder MSM's points
+            host_pts = kzg.setup.g1_lagrange
+        else:
+            host_pts = bls_g1_points(rng, n)
+            pt = torch.from_numpy(k_g.g1_to_limbs(host_pts)).to(dev)
+        words = k_fr.as_i32(k_fr.fr_to_words(sc)).to(dev)
+        got = k_g.scalar_mul_wide(pt, words)
+        want, plain_ms = _plain_ms(lambda: k_g.scalar_mul_wide_plain(pt, words))
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"g1_scalar_mul_wide differs from its plain version at {n} points (max_abs_err {err})")
+        host_rows = min(n, 37)
+        for row, p, k in zip(k_g.g1_from_limbs(got[:host_rows].cpu().numpy()), host_pts, sc):
+            if not pt_eq(FQ, row, pt_mul(FQ, p, k)):
+                raise AssertionError(f"g1_scalar_mul_wide differs from the host pt_mul (k = {k})")
+        case = {
+            "equal_plain": True,
+            "equal_host_rows": host_rows,
+            "max_abs_err": err,
+            "rows_differing": _rows_differing(got, want),
+            "ms": _time_ms(lambda: k_g.scalar_mul_wide(pt, words), reps=3, warmup=1),
+            "plain_ms": plain_ms,
+            "library_ms": None,
+        }
+        if n == kzg.setup.n:
+            # the ladder computes the MSM's function: K9's least work bounds it
+            least = msm_fq_muls(sc)
+            case.update(
+                _bound(least["fq_muls"], pt.numel() * 8 + words.numel() * 4 + 36 * 8),
+                best_window=least["window"],
+                ladder_msm_ms=_time_ms(lambda: k_msm.g1_msm_ladder(pt, words), reps=3, warmup=1),
+            )
+        out["kernels"][f"g1_scalar_mul_wide[{n}]"] = case
+    out["registers"] = {
+        "merkle_subtree.cu": _ptxas_of(k_ms.LIB, "merkle_subtree"),
+        "bls381_g.cu": _ptxas_of(k_g.LIB, "scalar_mul_wide"),
+    }
+    emit(out)
+    return out
+
+
+def _median_event_ms(fn, reps: int = SHARDED_REPS) -> float:
+    """Median milliseconds of `reps` single calls of fn(), each timed by
+    CUDA events (`_plain_ms`)."""
+    return float(np.median([_plain_ms(fn)[1] for _ in range(reps)]))
+
+
+def phase_sharded_main_path(state, kzg, seed: int) -> dict:
+    """The multi-device step on a process group of one rank (NCCL, this
+    card): (a) the registry's sharded Merkle root, (b) a segment's sharded
+    RLC sum, (c) the ladder MSM of one blob, each with its counts set to 0
+    just before its run and read just after; (d) the spawned dry run."""
+    from lighthouse_tpu_torch import entry
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, g1_to_bytes, msm, pt_eq
+    from lighthouse_tpu_torch.crypto.kzg import _blobs_to_words
+    from lighthouse_tpu_torch.ops import bls381_sharded as k_rlc
+    from lighthouse_tpu_torch.ops.cuda_build import BUILD_DIR
+    from lighthouse_tpu_torch.parallel.mesh import all_gather_rows, batch_mesh, close_mesh
+    from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 43)
+    out = {"phase": "sharded_main_path", "ranks": 1, "backend": "nccl"}
+
+    # inputs, before the group: the registry's validator roots (resident
+    # columns), seeded points and scalars, one seeded blob
+    t0 = time.perf_counter()
+    cols = registry_columns_for(state)
+    if cols is None:
+        raise AssertionError("the phase-4 state has no resident registry columns")
+    cols.refresh(state)
+    roots = cols.validator_root_rows(None)
+    n_val = roots.shape[0]
+    if n_val > SHARDED_LEAVES:
+        raise AssertionError(f"{n_val} validators exceed {SHARDED_LEAVES} leaves")
+    leaves_np = np.zeros((SHARDED_LEAVES, 32), dtype=np.uint8)
+    leaves_np[:n_val] = roots
+    leaves = torch.from_numpy(leaves_np).to(dev)
+    out["validator_roots_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_pts = bls_g1_points(rng, RLC_POINTS)
+    scalars = bls_scalars(rng, RLC_POINTS)
+    out["rlc_points"] = f"{RLC_POINTS} seeded points (bls_g1_points): phase 5's keys make one block's 128 committee aggregates, not a segment's {RLC_POINTS}"
+    out["rlc_points_s"] = time.perf_counter() - t0
+    pts = torch.from_numpy(k_g.g1_to_limbs(host_pts)).to(dev)
+    ks = k_g.scalars_to_tensor(scalars).to(dev)
+    blob = kzg_blobs(rng, 1)[0]
+    words = kzg._dev.to_device(_blobs_to_words([blob], kzg.setup.n)[0])
+    lagrange = kzg._dev.points
+
+    store = BUILD_DIR / f"phase8-store-{os.getpid()}"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mesh = batch_mesh(0, 1, str(store), device="cuda")
+    out["group_init_s"] = time.perf_counter() - t0
+    try:
+        # (a) the sharded registry root: counts at 0 just before, read just after
+        torch.cuda.synchronize()
+        k_ms.reset_counts()
+        root = k_ms.sharded_merkle_root(leaves, mesh)
+        torch.cuda.synchronize()
+        launches_a = dict(k_ms.COUNTS)
+        if launches_a["merkle_subtree_roots"] <= 0:
+            raise AssertionError("(a) the sharded root launched no merkle_subtree_roots")
+        node = root.cpu().numpy().tobytes()
+        ftype = state._fields["validators"]
+        limit = ftype.chunk_count()
+        for d in range((SHARDED_LEAVES - 1).bit_length(), (next_pow_of_two(limit) - 1).bit_length()):
+            node = hashlib.sha256(node + ZERO_HASHES[d]).digest()
+        validators_root = mix_in_length(node, n_val)
+        state_root_field = state.__dict__["_thc_cache"].field_root(state, "validators", ftype)
+        if validators_root != state_root_field:
+            raise AssertionError(f"(a) sharded validators root {validators_root.hex()} != the state's {state_root_field.hex()}")
+        host_root = mix_in_length(_host_fold(roots, limit), n_val)
+        if validators_root != host_root:
+            raise AssertionError("(a) sharded validators root differs from the hashlib fold")
+        local = k_ms.subtree_root(leaves)
+        out["a_registry_root"] = {
+            "validators": n_val,
+            "leaves": SHARDED_LEAVES,
+            "validators_root": validators_root.hex(),
+            "equal_state_field_root": True,
+            "equal_host_fold": True,
+            "launches": launches_a["merkle_subtree_roots"],
+            "step_ms": _median_event_ms(lambda: k_ms.sharded_merkle_root(leaves, mesh)),
+            "kernels_ms": _median_event_ms(lambda: k_ms.subtree_root(k_ms.subtree_root(leaves))),
+            "all_gather_ms": _median_event_ms(lambda: all_gather_rows(local, mesh)),
+        }
+
+        # (b) the sharded RLC sum
+        torch.cuda.synchronize()
+        k_g.reset_counts()
+        got = k_rlc.sharded_rlc_g1(pts, ks, mesh)
+        torch.cuda.synchronize()
+        launches_b = {n: k_g.COUNTS[n] for n in ("g1_scalar_mul", "g1_segment_sum")}
+        if min(launches_b.values()) <= 0:
+            raise AssertionError(f"(b) the sharded RLC sum missed a K2 kernel: {launches_b}")
+        want, plain_ms = _plain_ms(lambda: k_rlc.fold_plain(k_rlc.local_sum_plain(pts, ks)))
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"(b) the sharded RLC sum differs from its plain version (max_abs_err {err})")
+        few = k_rlc.sharded_rlc_g1(pts[:RLC_HOST_POINTS].contiguous(), ks[:RLC_HOST_POINTS].contiguous(), mesh)
+        if not pt_eq(FQ, k_g.g1_from_limbs(few.cpu().numpy())[0], msm(FQ, host_pts[:RLC_HOST_POINTS], scalars[:RLC_HOST_POINTS])):
+            raise AssertionError(f"(b) the sharded RLC sum of {RLC_HOST_POINTS} points differs from the host")
+        part = k_rlc.local_sum(pts, ks)
+        gathered = all_gather_rows(part, mesh)
+        least = msm_fq_muls(scalars, bits=64)
+        out["b_rlc_sum"] = {
+            "points": RLC_POINTS,
+            "scalar_bits": 64,
+            "equal_plain": True,
+            "max_abs_err": err,
+            "equal_host_points": RLC_HOST_POINTS,
+            "launches": launches_b,
+            "step_ms": _median_event_ms(lambda: k_rlc.sharded_rlc_g1(pts, ks, mesh)),
+            # one rank: the local sum is already the gathered [1, 3, 12]
+            "kernels_ms": _median_event_ms(lambda: k_rlc.fold(k_rlc.local_sum(pts, ks))),
+            "fold_ms": _median_event_ms(lambda: k_rlc.fold(gathered)),
+            "all_gather_ms": _median_event_ms(lambda: all_gather_rows(part, mesh)),
+            "plain_ms": plain_ms,
+            "best_window": least["window"],
+            **_bound(least["fq_muls"], pts.numel() * 8 + ks.numel() * 8 + 36 * 8),
+        }
+
+        # (c) the ladder MSM of one blob over the ceremony's Lagrange points
+        torch.cuda.synchronize()
+        k_g.reset_counts()
+        total = k_msm.g1_msm_ladder(lagrange, words)
+        torch.cuda.synchronize()
+        launches_c = {n: k_g.COUNTS[n] for n in ("g1_scalar_mul_wide", "g1_segment_sum")}
+        if min(launches_c.values()) <= 0:
+            raise AssertionError(f"(c) the ladder MSM missed a kernel: {launches_c}")
+        commitment = kzg.blob_to_kzg_commitment(blob)
+        if g1_to_bytes(k_g.g1_from_limbs(total.cpu().numpy())[0]) != commitment:
+            raise AssertionError("(c) the ladder MSM differs from K9 Pippenger's commitment")
+        want_c, plain_c_ms = _plain_ms(lambda: k_msm.g1_msm_ladder_plain(lagrange, words))
+        if not torch.equal(total, want_c):
+            raise AssertionError("(c) the ladder MSM differs from the plain ladder")
+        out["c_ladder_msm"] = {
+            "points": int(lagrange.shape[0]),
+            "equal_pippenger_commitment": True,
+            "equal_plain_ladder": True,
+            "launches": launches_c,
+            "ms": _median_event_ms(lambda: k_msm.g1_msm_ladder(lagrange, words)),
+            "pippenger_ms": _median_event_ms(lambda: k_msm.g1_msm(lagrange, words)),
+            "plain_ms": plain_c_ms,
+        }
+    finally:
+        close_mesh(mesh)
+        store.unlink(missing_ok=True)
+
+    # (d) the dry run in a spawned rank, as the JAX dry run runs it
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1, device="cuda", timeout=300)
+    out["d_dryrun_multichip_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2335,6 +2636,7 @@ def main(argv=None) -> int:
             "cuda": torch.version.cuda,
             "device_count": torch.cuda.device_count(),
             "device_name": torch.cuda.get_device_name(0),
+            "host_pool": {"size": host_pool.get_pool().size, "start_method": "fork"},
         }
     )
     phase_build()
@@ -2343,6 +2645,7 @@ def main(argv=None) -> int:
     sweep_check = phase_epoch_sweep_check(args.seed)
     kzg = ceremony_kzg()
     kzg_checks = phase_kzg_kernel_checks(kzg, args.seed)
+    sharded_checks = phase_sharded_kernel_checks(kzg, args.seed)
     main_path, state = phase_main_path(N_VALIDATORS, UPDATES, args.seed)
     types = build_types(MainnetEthSpec)
     bls_path, sk_of = phase_bls_main_path(state, types, MainnetEthSpec, args.seed)
@@ -2352,6 +2655,8 @@ def main(argv=None) -> int:
     commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
     transition, signed = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
     blob_path = phase_blob_main_path(kzg, blobs, signed, types, MainnetEthSpec, args.seed)
+    sharded = phase_sharded_main_path(state, kzg, args.seed)
+    host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
         {
@@ -2421,6 +2726,53 @@ def main(argv=None) -> int:
                     KZG_KERNELS.items(),
                     (f"barycentric_eval[{BLOBS_PER_BLOCK},4096]", "quotient[4096]", "msm[4096]"),
                 )
+            ]
+            + [
+                {
+                    "name": name,
+                    "route": "cuda",
+                    "source": src,
+                    "replaces": replaces,
+                    "launches": launches,
+                    "max_abs_err": max(
+                        c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
+                    ),
+                    **{key: sharded_checks["kernels"][case][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                    "library_ms": None,
+                }
+                for name, src, replaces, launches, case in (
+                    (
+                        "merkle_subtree_roots",
+                        "lighthouse_tpu_torch/csrc/merkle_subtree.cu",
+                        "lighthouse_tpu/ops/merkle_sharded.py:42",
+                        sharded["a_registry_root"]["launches"],
+                        f"merkle_subtree_roots[{SHARDED_LEAVES}]",
+                    ),
+                    (
+                        "g1_scalar_mul_wide",
+                        "lighthouse_tpu_torch/csrc/bls381_g.cu",
+                        "lighthouse_tpu/ops/msm.py:172",
+                        sharded["c_ladder_msm"]["launches"]["g1_scalar_mul_wide"],
+                        f"g1_scalar_mul_wide[{kzg.setup.n}]",
+                    ),
+                )
+            ]
+            + [
+                {
+                    # a composition of K2 kernels (bls381_g.cu) around NCCL's
+                    # all-gather: its launches are theirs, its ms theirs alone
+                    "name": "sharded_rlc_g1",
+                    "route": "cuda",
+                    "source": "lighthouse_tpu_torch/ops/bls381_sharded.py",
+                    "replaces": "lighthouse_tpu/ops/bls381_sharded.py:52",
+                    "launches": sum(sharded["b_rlc_sum"]["launches"].values()),
+                    "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
+                    "ms": sharded["b_rlc_sum"]["kernels_ms"],
+                    "plain_ms": sharded["b_rlc_sum"]["plain_ms"],
+                    "bound_ms": sharded["b_rlc_sum"]["bound_ms"],
+                    "bound_by": sharded["b_rlc_sum"]["bound_by"],
+                    "library_ms": None,
+                }
             ]
         }
     )

@@ -13,10 +13,11 @@ Backends:
   "fake_crypto" — always-valid no-op crypto for spec-logic tests
                   (crypto/bls/src/impls/fake_crypto.rs equivalent)
 
-Counterpart of lighthouse_tpu/crypto/bls. The host backend runs its
-batch-verify and batch-sign work units inline in the caller (the
-reference's own behaviour when its fork pool has one worker); the `cuda`
-backend replaces the reference's `tpu` backend and has no fallback.
+Counterpart of lighthouse_tpu/crypto/bls. The host backend shards its
+batch-verify and batch-sign work units across the host fork pool
+(parallel/host_pool; inline at pool size 1), as the reference does; the
+`cuda` backend replaces the reference's `tpu` backend and has no
+fallback.
 
 The eth2 scheme is min-pubkey-size: pubkeys in G1 (48 B), signatures in G2
 (96 B), proof-of-possession ciphersuite DST (impls/blst.rs:13). Messages are
@@ -216,9 +217,14 @@ del _c
 
 # Batch-verify path counter: `msm` is the host backend's Pippenger path.
 # Eager registration so a report shows zero instead of omitting the series.
+# bls_pool_tasks_total is registered here too (parallel/host_pool also
+# registers it) because the pool import is lazy.
 REGISTRY.counter(
     "bls_batch_verify_total", "batch verifications by algorithm path"
 ).inc(0.0, path="msm")
+for _m in ("inline", "fork"):
+    REGISTRY.counter("bls_pool_tasks_total").inc(0.0, mode=_m)
+del _m
 # Batch-signing strategy counter (the VC duty pipeline's signing stage):
 # `fixed_base` counts signatures served by a per-message window table,
 # `per_key` the small-group pt_mul fallback inside the same worker seam.
@@ -485,13 +491,15 @@ class SignatureSet:
 # ---------------------------------------------------------------------------
 # Batch-verify work units
 # ---------------------------------------------------------------------------
-# The reference shards these across a fork pool and runs them inline when
-# the pool has one worker; the port runs them inline always (the pool waits
-# for the node slice). They keep the reference's fork-safe shape: lock-free
-# pure Python over plain per-process dict caches, no metrics or logging.
-# (pairing.miller_product is the fourth unit.) Invalid input raises
-# BlsError/ValueError; the caller maps ANY exception to verification
-# failure.
+# These run in parallel/host_pool workers AND inline when the pool degrades
+# (size <= 1), so both modes execute the identical code. Fork-safety rule
+# (see host_pool's module docstring): lock-free pure Python only — the
+# caches are plain per-process dicts, never the locked LRUs above, no
+# metrics/logging, and no torch, because a forked child inherits parent
+# locks as-held and a CUDA context does not survive fork.
+# (pairing.miller_product, the fourth sharding unit, follows the same rule.)
+# Invalid input raises BlsError/ValueError; the caller maps ANY worker
+# exception to verification failure.
 
 _WORKER_CACHE_CAP = 8192
 _W_SIG: dict = {}   # sig bytes -> subgroup-checked G2 point (on the twist)
@@ -623,7 +631,7 @@ class _HostBackend:
 
     def sign_batch(self, secret_keys, messages) -> list:
         """Sign messages[i] with secret_keys[i], grouped by distinct
-        message (one work unit per group, run inline).
+        message and sharded across the fork pool.
 
         The win is algorithmic, not just amortization: every group shares
         one hash-to-G2 point, and groups large enough to pay for it run
@@ -632,7 +640,10 @@ class _HostBackend:
         a full wNAF ladder. Small groups keep per-scalar `pt_mul` inside
         the same worker seam. Output signatures are BIT-IDENTICAL to
         per-key `sign` (same group element, same canonical compression);
-        the reference's tests hold the differential."""
+        tests/test_torch_host_pool.py holds them to `sign` at pool sizes
+        0, 1 and 4."""
+        from ...parallel import host_pool  # lazy, like verify_signature_sets
+
         if len(secret_keys) != len(messages):
             raise BlsError("sign_batch length mismatch")
         if not secret_keys:
@@ -640,10 +651,17 @@ class _HostBackend:
         groups: dict[bytes, list[int]] = {}
         for i, m in enumerate(messages):
             groups.setdefault(bytes(m), []).append(i)
-        out: list = [None] * len(secret_keys)
-        with span("bls_sign_batch", sigs=len(secret_keys), groups=len(groups)):
-            for message, idxs in groups.items():
-                m = len(idxs)
+        pool = host_pool.get_pool()
+        tasks: list = []
+        task_idxs: list = []
+        for message, idxs in groups.items():
+            shards = (
+                pool.size
+                if pool.size > 1 and len(idxs) >= 2 * pool.size
+                else 1
+            )
+            for chunk in host_pool.shard(idxs, shards):
+                m = len(chunk)
                 window = (
                     fixed_base_window(m) if fixed_base_worthwhile(m) else None
                 )
@@ -652,13 +670,21 @@ class _HostBackend:
                     amount=m,
                     path="fixed_base" if window is not None else "per_key",
                 )
-                task = (
-                    message,
-                    DST_G2_POP,
-                    window,
-                    [secret_keys[i].scalar for i in idxs],
+                tasks.append(
+                    (
+                        message,
+                        DST_G2_POP,
+                        window,
+                        [secret_keys[i].scalar for i in chunk],
+                    )
                 )
-                for i, b in zip(idxs, _sign_chunk(task)):
+                task_idxs.append(chunk)
+        out: list = [None] * len(secret_keys)
+        with span("bls_sign_batch", sigs=len(secret_keys), groups=len(groups)):
+            for chunk, sig_bytes in zip(
+                task_idxs, pool.map(_sign_chunk, tasks)
+            ):
+                for i, b in zip(chunk, sig_bytes):
                     out[i] = Signature(b)
         return out
 
@@ -682,8 +708,8 @@ class _HostBackend:
 
     def verify_signature_sets(self, sets, rng=None) -> bool:
         """Random-linear-combination batch verification — the Pippenger MSM
-        path (the role of blst's Pippenger in the reference's
-        block_signature_verifier.rs).
+        + fork-pool fast path (the role of blst's Pippenger + rayon in the
+        reference's block_signature_verifier.rs).
 
         The check is the standard RLC product with per-set 64-bit random
         scalars rᵢ:
@@ -702,14 +728,17 @@ class _HostBackend:
         Whichever grouping yields fewer pairs wins; both are exact identities
         so the soundness argument is unchanged. Σ rᵢ·sigᵢ is always ONE G2
         MSM. Decompression + subgroup checks, hash-to-G2, the MSMs and the
-        pairs' Miller loops run as the reference's work units, inline; the
-        final exponentiation runs once. Any exception in them is a
-        verification failure, never a hang."""
+        pairs' Miller loops shard across parallel/host_pool (inline when the
+        pool degrades); the final exponentiation runs once in the parent.
+        Any worker exception is a verification failure, never a hang."""
+        from ...parallel import host_pool  # lazy: no pool for single verifies
+
         sets = list(sets)
         if not sets:
             return False
         rand = rng if rng is not None else secrets.SystemRandom()
         inc_counter("bls_batch_verify_total", path="msm")
+        pool = host_pool.get_pool()
         items = []
         for s in sets:
             if s.signature.is_infinity() or not s.pubkeys:
@@ -728,9 +757,17 @@ class _HostBackend:
         try:
             try:
                 with span("bls_rlc_accumulate", sets=len(items)):
-                    prepped = _prep_chunk(
-                        [(sig, pks) for sig, pks, _, _ in items]
-                    )
+                    prepped = [
+                        p
+                        for chunk in pool.map(
+                            _prep_chunk,
+                            host_pool.shard(
+                                [(sig, pks) for sig, pks, _, _ in items],
+                                pool.size,
+                            ),
+                        )
+                        for p in chunk
+                    ]
             except ValueError:
                 # malformed encodings / failed subgroup checks (BlsError is
                 # a ValueError) — a silent reject.
@@ -740,12 +777,32 @@ class _HostBackend:
                 return False
             messages = list(dict.fromkeys(m for _, _, m, _ in items))
             with span("bls_hash_to_g2", messages=len(messages)):
-                h2g = dict(zip(messages, _hash_g2_chunk(messages)))
+                h2g = dict(
+                    zip(
+                        messages,
+                        (
+                            pt
+                            for chunk in pool.map(
+                                _hash_g2_chunk,
+                                host_pool.shard(messages, pool.size),
+                            )
+                            for pt in chunk
+                        ),
+                    )
+                )
             with span("bls_msm_g2", sets=len(items)):
                 rs = [r for _, _, _, r in items]
                 sig_pts = [sig_pt for sig_pt, _ in prepped]
-                # Σ rᵢ·sigᵢ: one G2 MSM
-                agg_sig = _msm_chunk([("g2", sig_pts, rs)])[0]
+                # Σ rᵢ·sigᵢ: one G2 MSM, sharded as per-worker slice sums
+                agg_sig = inf(FQ2)
+                for part in pool.map(
+                    _msm_chunk,
+                    [
+                        [("g2", [sig_pts[i] for i in idxs], [rs[i] for i in idxs])]
+                        for idxs in host_pool.shard(range(len(items)), pool.size)
+                    ],
+                ):
+                    agg_sig = pt_add(FQ2, agg_sig, part[0])
                 by_msg: dict[bytes, list] = {}
                 by_pk: dict[tuple, list] = {}
                 for i, (_, pk_tuple, message, _) in enumerate(items):
@@ -757,7 +814,13 @@ class _HostBackend:
                         for idxs in by_pk.values()
                     ]
                     g1_sides = [prepped[idxs[0]][1] for idxs in by_pk.values()]
-                    results = _msm_chunk(group_tasks)
+                    results = [
+                        r
+                        for chunk in pool.map(
+                            _msm_chunk, host_pool.shard(group_tasks, pool.size)
+                        )
+                        for r in chunk
+                    ]
                     pairs = list(zip(g1_sides, results))
                 else:
                     group_tasks = [
@@ -765,11 +828,25 @@ class _HostBackend:
                         for idxs in by_msg.values()
                     ]
                     g2_sides = [h2g[m] for m in by_msg]
-                    results = _msm_chunk(group_tasks)
+                    results = [
+                        r
+                        for chunk in pool.map(
+                            _msm_chunk, host_pool.shard(group_tasks, pool.size)
+                        )
+                        for r in chunk
+                    ]
                     pairs = list(zip(results, g2_sides))
             pairs.insert(0, (pt_neg(FQ, G1_GEN), agg_sig))
             with span("bls_pairing", pairs=len(pairs)):
-                return _F.f12_is_one(final_exponentiation(miller_product(pairs)))
+                with span(
+                    "bls_parallel_pairing", pairs=len(pairs), pool=pool.size
+                ):
+                    f = _F.F12_ONE
+                    for part in pool.map(
+                        miller_product, host_pool.shard(pairs, pool.size)
+                    ):
+                        f = _F.f12_mul(f, part)
+                    return _F.f12_is_one(final_exponentiation(f))
         except Exception as e:  # noqa: BLE001 — fail closed, never hang
             from ...utils.logging import get_logger
 

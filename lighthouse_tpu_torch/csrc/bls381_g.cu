@@ -7,7 +7,10 @@
 //   * bls381.py:492 g1_sum_reduce and bls381_verify.py:66/103/108
 //     _tree_reduce_scan / g1_segment_sum / g2_sum_reduce (tree sums over a
 //     padded committee axis);
-//   * bls381_verify.py:122/138 g1_jac_to_affine / g2_jac_to_affine.
+//   * bls381_verify.py:122/138 g1_jac_to_affine / g2_jac_to_affine;
+//   * msm.py:172 g1_msm_ladder's per-point ladders (K9 ladder): 256-bit
+//     scalars, batch_g1_scalar_mul over NBITS = 256 (the tree sum after
+//     them is g1_segment_sum).
 //
 // Design: one thread per lane; a lane's points live in registers and local
 // memory. The ladders branch on the scalar's bits (they are public: the
@@ -34,6 +37,15 @@
 //     an inverse, 381 Fq products for a^(p-2), and 3(n - 1) products), then
 //     z^-2, z^-3, x z^-2, y z^-3 per lane: G1 381 + 3(n - 1) + 4n, G2 385
 //     (the norm, an Fq inverse, 2 products) + 9(n - 1) + 11n.
+//   * 256-bit ladder (bls_g1_scalar_mul_wide): one thread per point, all
+//     256 bits from the canonical infinity, each a doubling and an
+//     addition whose result is kept only where the bit is set (the JAX
+//     ladder's branchless select: lanes of a warp hold different scalars,
+//     so a branch would diverge on nearly every bit). It computes sum
+//     s_i P_i with the tree sum after it, the function K9 (csrc/msm.cu)
+//     computes, so its bound is K9's least work for the same scalars
+//     (chip_smoke.msm_fq_muls): what the ladder does beyond it, 256
+//     doublings and 256 additions per point, is what the ratio shows.
 // chip_smoke.py (BLS_FQ_MULS) turns these counts into a bound: 588 32-bit
 // multiplies per Montgomery multiplication over 64 multiplies per clock
 // per SM (CUDA C++ Programming Guide, compute capability 9.0), 132 SMs,
@@ -55,6 +67,27 @@ scalar_mul_kernel(const long long* pts, const long long* k, long long* out, long
   pt_ld(p, pts + i * p3);
   pt_mul_u64(r, p, (unsigned long long)k[i]);
   pt_st(out + i * p3, r);
+}
+
+// pts [n, 3, 12] G1; words [n, 8] int32, canonical 256-bit scalars as
+// big-endian 32-bit words (word 0 most significant: ops/fr.py's layout)
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+scalar_mul_wide_kernel(const long long* pts, const int* words, long long* out, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int p3 = 3 * limbs<fp>::n;
+  jac<fp> p, acc, t;
+  pt_ld(p, pts + i * p3);
+  pt_inf(acc);
+  for (int w = 0; w < 8; w++) {
+    const unsigned word = (unsigned)words[i * 8 + w];
+    for (int b = 31; b >= 0; b--) {
+      pt_double(acc, acc);
+      pt_add(t, acc, p);
+      if ((word >> b) & 1u) acc = t;
+    }
+  }
+  pt_st(out + i * p3, acc);
 }
 
 // pts [n, k, 3, w] (k a power of two), buf [n, k/2, 3, w], out [n, 3, w]
@@ -123,6 +156,11 @@ int bls_g1_scalar_mul(const long long* pts, const long long* k, long long* out, 
 
 int bls_g2_scalar_mul(const long long* pts, const long long* k, long long* out, long long n, void* stream) {
   scalar_mul_kernel<fp2><<<grid_for(n), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, k, out, n);
+  return (int)cudaGetLastError();
+}
+
+int bls_g1_scalar_mul_wide(const long long* pts, const int* words, long long* out, long long n, void* stream) {
+  scalar_mul_wide_kernel<<<grid_for(n), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, words, out, n);
   return (int)cudaGetLastError();
 }
 

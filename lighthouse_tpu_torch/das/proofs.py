@@ -17,8 +17,9 @@ Batch verification is the EIP-4844 RLC collapse ported to cells: with
 per-item challenge powers r_i, the n pairing equations
   e(C_i - y_i*G1 + z_i*pi_i, -G2) * e(pi_i, tau*G2) == 1
 sum into ONE equation whose two sides are Pippenger MSMs over the proof
-points (crypto/bls12_381/msm), plus a single pairing check. The per-cell
-scalar path (`verify_cell_kzg_proof`) stays as the differential oracle.
+points (crypto/bls12_381/msm) sharded across the host fork pool, plus a
+single pairing check. The per-cell scalar path (`verify_cell_kzg_proof`)
+stays as the differential oracle.
 
 Proof COMPUTATION has a dev-tau fast path: `TrustedSetup.insecure_dev`
 derives tau deterministically, and when the setup's [tau]G2 matches that
@@ -28,17 +29,16 @@ difference between seconds and hours at mainnet blob counts. Ceremony
 setups (tau unknown) take the honest quotient-MSM path. Verification
 never shortcuts: it is the same pairing math for every setup.
 
-The work units (`_msm_shard`, `_prove_shard`) are the reference's fork-pool
-workers, module-level and pure (no metrics, no logging, no spans); the
-port runs each once, inline, over all its items, as the reference does
-when its pool has one worker.
+Pool workers (`_msm_shard`, `_prove_shard`) are module-level and pure —
+no metrics, no logging, no spans, no torch (a forked child never touches
+CUDA); counters are incremented parent-side only.
 """
 
 from __future__ import annotations
 
 import hashlib
 
-from ..crypto.bls12_381 import FQ, FQ2, G1_GEN, G2_GEN, pt_add, pt_eq, pt_mul
+from ..crypto.bls12_381 import FQ, FQ2, G1_GEN, G2_GEN, inf, pt_add, pt_eq, pt_mul
 from ..crypto.bls12_381.curve import g1_from_bytes, g1_to_bytes, pt_neg
 from ..crypto.bls12_381.fields import R as FR_MOD
 from ..crypto.bls12_381.msm import msm
@@ -54,6 +54,7 @@ from ..crypto.kzg import (
     _root_of_unity,
 )
 from ..metrics import inc_counter
+from ..parallel.host_pool import get_pool, shard
 from ..utils.safe_arith import safe_add, safe_mul
 from ..utils.tracing import span
 from .erasure import _batch_inv, cells_from_extended, extend_evals, ext_roots_brp
@@ -151,8 +152,8 @@ def _lagrange_at_tau(setup, tau: int) -> list:
 
 
 def _prove_shard(task) -> list[bytes]:
-    """Work unit: dev-tau proofs for one shard of cells — pure group
-    math. task = list of (p_tau, y, inv_tau_minus_z)."""
+    """Pool worker: dev-tau proofs for one shard of cells — pure group
+    math, fork-safe. task = list of (p_tau, y, inv_tau_minus_z)."""
     out = []
     for p_tau, y, inv_tmz in task:
         scalar = (p_tau - y) * inv_tmz % FR_MOD
@@ -191,7 +192,8 @@ def compute_cells_and_proofs(
     for e, l in zip(evals, lag):
         p_tau = (p_tau + e * l) % FR_MOD
     invs = _batch_inv([(tau - z) % FR_MOD for z in zs])
-    proofs = _prove_shard(list(zip([p_tau] * columns, ys, invs)))
+    tasks = shard(list(zip([p_tau] * columns, ys, invs)), get_pool().size)
+    proofs = [p for chunk in get_pool().map(_prove_shard, tasks) for p in chunk]
     return cells, proofs, commitment
 
 
@@ -215,9 +217,9 @@ def verify_cell_kzg_proof(
 
 
 def _msm_shard(task):
-    """Work unit: decompress one shard of proof points and return the
+    """Pool worker: decompress one shard of proof points and return the
     two partial MSMs (lhs z-weighted, rhs r-weighted) as Jacobian points.
-    Pure group math. task = (proof_bytes_list, rz_list, r_list)."""
+    Pure group math — fork-safe. task = (proof_bytes_list, rz_list, r_list)."""
     proof_bytes, rz, rs = task
     pts = [g1_from_bytes(p) for p in proof_bytes]
     return msm(FQ, pts, rz), msm(FQ, pts, rs)
@@ -226,7 +228,7 @@ def _msm_shard(task):
 def verify_cell_kzg_proof_batch(items, kzg) -> bool:
     """One RLC pairing check for any number of (commitment, cell_index,
     cell_bytes, proof) items — a whole block's or segment's cells collapse
-    into two Pippenger MSMs plus one pairing.
+    into two Pippenger MSMs over the fork-pool lanes plus one pairing.
 
     Raises KzgError on malformed inputs (non-canonical field elements,
     bad point encodings); returns False when well-formed cells fail the
@@ -273,8 +275,15 @@ def verify_cell_kzg_proof_batch(items, kzg) -> bool:
             lhs = pt_add(FQ, lhs, pt_mul(FQ, G1_GEN, (-y_scalar) % FR_MOD))
             proof_bytes = [bytes(it[3]) for it in items]
             rz = [ri * z % FR_MOD for ri, z in zip(rs, zs)]
-            lhs_part, rhs = _msm_shard((proof_bytes, rz, rs))
-            lhs = pt_add(FQ, lhs, lhs_part)
+            parts = max(1, min(get_pool().size, len(items) // 32))
+            tasks = [
+                tuple(zip(*chunk))
+                for chunk in shard(list(zip(proof_bytes, rz, rs)), parts)
+            ]
+            rhs = inf(FQ)
+            for lhs_part, rhs_part in get_pool().map(_msm_shard, tasks):
+                lhs = pt_add(FQ, lhs, lhs_part)
+                rhs = pt_add(FQ, rhs, rhs_part)
         with span("da_pairing"):
             ok = pairing_check(
                 [(pt_neg(FQ, lhs), G2_GEN), (rhs, kzg.setup.g2_monomial[1])]

@@ -6,8 +6,10 @@ package's 64-bit RLC ladders (``batch_g1_scalar_mul``/
 ``batch_g2_scalar_mul``, :481/:487), its tree sums over a padded committee
 axis (``g1_sum_reduce`` :492; ``g1_segment_sum``/``g2_sum_reduce``,
 bls381_verify.py:103/108) and its batched Jacobian -> affine conversion
-(bls381_verify.py:122/138). The field and curve arithmetic they run is in
-``csrc/bls381_field.cuh``; its bound is 32-bit multiply-adds.
+(bls381_verify.py:122/138), and the per-point 256-bit ladders of
+``g1_msm_ladder`` (msm.py:172; ``scalar_mul_wide``, the K9 ladder). The
+field and curve arithmetic they run is in ``csrc/bls381_field.cuh``; its
+bound is 32-bit multiply-adds.
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;
@@ -47,6 +49,7 @@ R_INV = pow(R_MONT, -1, P)
 COUNTS = {
     "g1_scalar_mul": 0,
     "g2_scalar_mul": 0,
+    "g1_scalar_mul_wide": 0,
     "g1_segment_sum": 0,
     "g2_segment_sum": 0,
     "g1_to_affine": 0,
@@ -58,6 +61,7 @@ LIB = CudaLibrary(
     {
         "bls_g1_scalar_mul": ("p", "p", "p", "i64", "p"),
         "bls_g2_scalar_mul": ("p", "p", "p", "i64", "p"),
+        "bls_g1_scalar_mul_wide": ("p", "p", "p", "i64", "p"),
         "bls_g1_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g2_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g1_to_affine": ("p", "p", "i64", "p"),
@@ -401,16 +405,29 @@ def pt_neg(F, p):
     return (p[0], F.neg(p[1]), p[2])
 
 
-def pt_mul_u64(F, p, k: torch.Tensor):
-    """[k]P for 64-bit scalars k ([lanes] int64 bit patterns), left to right
-    over all 64 bits from the canonical infinity."""
-    acc = pt_inf(F, k.shape, k.device)
-    for i in range(63, -1, -1):
+def pt_ladder(F, p, bits):
+    """Double-and-add left to right over `bits` ([lanes] bool tensors, most
+    significant first) from the canonical infinity; the addition is kept
+    where the bit is set."""
+    acc = pt_inf(F, bits[0].shape, bits[0].device)
+    for bit in bits:
         acc = pt_double(F, acc)
-        bit = ((k >> i) & 1).bool()
         added = pt_add(F, acc, p)
         acc = tuple(where16(bit, a, b, F.dims) for a, b in zip(added, acc))
     return acc
+
+
+def pt_mul_u64(F, p, k: torch.Tensor):
+    """[k]P for 64-bit scalars k ([lanes] int64 bit patterns), over all 64
+    bits."""
+    return pt_ladder(F, p, [((k >> i) & 1).bool() for i in range(63, -1, -1)])
+
+
+def pt_mul_words(F, p, words: torch.Tensor):
+    """[k]P for 256-bit scalars k as [lanes, 8] int32 canonical big-endian
+    words (ops/fr.py's layout), over all 256 bits."""
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    return pt_ladder(F, p, [((u[:, w] >> b) & 1).bool() for w in range(8) for b in range(31, -1, -1)])
 
 
 def pt_to_affine(F, p):
@@ -454,6 +471,10 @@ def _field(group: str):
 def scalar_mul_plain(group: str, pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     F = _field(group)
     return pack32(pt_mul_u64(F, unpack16(pts, F.dims), k), F.dims)
+
+
+def scalar_mul_wide_plain(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    return pack32(pt_mul_words(Fq1, unpack16(pts, 1), words), 1)
 
 
 def segment_sum_plain(group: str, pts: torch.Tensor) -> torch.Tensor:
@@ -507,6 +528,25 @@ def scalar_mul(group: str, pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scalar_mul_wide(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """[n, 3, 12] Jacobian G1 points times [n, 8] 256-bit scalars (int32
+    canonical big-endian words) -> [n, 3, 12]."""
+    check_limbs(pts, (3, NLIMB), "pts")
+    n = pts.shape[0]
+    if pts.dim() != 3:
+        raise ValueError(f"pts: expected [n, 3, 12], got {list(pts.shape)}")
+    if words.dtype != torch.int32 or tuple(words.shape) != (n, 8) or not words.is_contiguous():
+        raise ValueError(f"scalars: expected contiguous [{n}, 8] int32, got {list(words.shape)} {words.dtype}")
+    if pts.device.type == "cpu":
+        return scalar_mul_wide_plain(pts, words)
+    dev = _cuda_ok(pts, words)
+    out = torch.empty_like(pts)
+    if n:
+        LIB.launch("bls_g1_scalar_mul_wide", pts.data_ptr(), words.data_ptr(), out.data_ptr(), n, device=dev)
+        COUNTS["g1_scalar_mul_wide"] += 1
+    return out
+
+
 def segment_sum(group: str, pts: torch.Tensor) -> torch.Tensor:
     """[n, k, 3, coord] points (k a power of two; pad with infinities)
     -> [n, 3, coord] per-row sums."""
@@ -523,6 +563,17 @@ def segment_sum(group: str, pts: torch.Tensor) -> torch.Tensor:
         LIB.launch(f"bls_{group}_segment_sum", pts.data_ptr(), buf.data_ptr(), out.data_ptr(), n, k, device=dev)
         COUNTS[f"{group}_segment_sum"] += 1
     return out
+
+
+def tree_row(pts: torch.Tensor) -> torch.Tensor:
+    """[n, 3, coord] points -> [1, k, 3, coord], k the next power of two
+    (at least 1), padded with infinities (all-zero rows: Z = 0): one
+    segment for ``segment_sum``."""
+    n = pts.shape[0]
+    k = 1 << (max(n, 1) - 1).bit_length()
+    row = torch.zeros((1, k, *pts.shape[1:]), dtype=pts.dtype, device=pts.device)
+    row[0, :n] = pts
+    return row
 
 
 def to_affine(group: str, pts: torch.Tensor) -> torch.Tensor:

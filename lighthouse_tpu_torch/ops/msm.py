@@ -5,9 +5,15 @@ replaces ``msm_pippenger_device`` (:94) with its host digit preparation
 (``_host_digit_prep`` :48, ``g1_msm_pippenger`` :159), the path
 ``g1_msm_device`` (:186) takes on an accelerator: sum_i s_i * P_i over the
 4096 Lagrange points of the KZG setup, for every blob commitment and every
-opening proof. The JAX package's other path, ``g1_msm_ladder`` (:172),
-per-point 256-bit ladders that it takes on its CPU platform, is not on an
-accelerator's path and is not ported.
+opening proof.
+
+``g1_msm_ladder`` is the JAX function of the same name (:172), the path
+``g1_msm_device`` takes on the JAX package's CPU platform: per-point
+256-bit ladders (``ops/bls381.scalar_mul_wide``, the kernel
+``bls_g1_scalar_mul_wide`` of ``csrc/bls381_g.cu``), then one tree sum
+(K2's ``segment_sum``). It computes the same sum as ``g1_msm`` with
+about four times its point additions; it is its own public function, and
+the KZG engine stays on Pippenger.
 
 Layout: points [n, 3, 12] in the port's Jacobian limb layout (ops/bls381.py,
 int64), scalars [n, 8] canonical 32-bit words, most significant first,
@@ -31,7 +37,23 @@ from __future__ import annotations
 
 import torch
 
-from .bls381 import Fq1, NLIMB, check_limbs, pack32, pt_add, pt_double, pt_inf, segment_sum16, unpack16, where16
+from .bls381 import (
+    Fq1,
+    NLIMB,
+    check_limbs,
+    pack32,
+    pt_add,
+    pt_double,
+    pt_inf,
+    scalar_mul_wide,
+    scalar_mul_wide_plain,
+    segment_sum,
+    segment_sum16,
+    segment_sum_plain,
+    tree_row,
+    unpack16,
+    where16,
+)
 from .cuda_build import CudaLibrary
 
 WINDOW = 4
@@ -105,15 +127,34 @@ def g1_msm_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     return pack32(total, 1)
 
 
-def g1_msm(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """sum_i s_i * P_i: points [n, 3, 12] Jacobian limbs (int64), scalars
-    [n, 8] canonical words (int32), n >= 1 -> one Jacobian point [3, 12]."""
+def _check_msm_args(points: torch.Tensor, scalars: torch.Tensor) -> int:
     check_limbs(points, (3, NLIMB), "points")
     n = points.shape[0]
     if n < 1 or points.dim() != 3:
         raise ValueError(f"points: expected [n >= 1, 3, 12], got {list(points.shape)}")
     if scalars.dtype != torch.int32 or tuple(scalars.shape) != (n, 8) or not scalars.is_contiguous():
         raise ValueError(f"scalars: expected contiguous [{n}, 8] int32, got {list(scalars.shape)} {scalars.dtype}")
+    return n
+
+
+def g1_msm_ladder(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """sum_i s_i * P_i by per-point 256-bit ladders and one tree sum, in the
+    layout of ``g1_msm``: the kernels on a CUDA tensor, their plain
+    versions on a CPU tensor."""
+    _check_msm_args(points, scalars)
+    return segment_sum("g1", tree_row(scalar_mul_wide(points, scalars)))[0]
+
+
+def g1_msm_ladder_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """``g1_msm_ladder`` through the plain versions, on any device."""
+    _check_msm_args(points, scalars)
+    return segment_sum_plain("g1", tree_row(scalar_mul_wide_plain(points, scalars)))[0]
+
+
+def g1_msm(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """sum_i s_i * P_i: points [n, 3, 12] Jacobian limbs (int64), scalars
+    [n, 8] canonical words (int32), n >= 1 -> one Jacobian point [3, 12]."""
+    n = _check_msm_args(points, scalars)
     if points.device.type == "cpu":
         return g1_msm_plain(points, scalars)
     dev = points.device

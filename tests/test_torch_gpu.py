@@ -310,3 +310,76 @@ def test_kzg_six_blobs_on_the_ceremony_setup(cuda):
     assert [a - b for a, b in zip(after, before)] == [7, 6, 12]
     swapped = proofs[1:2] + proofs[:1] + proofs[2:]
     assert kzg.verify_blob_kzg_proof_batch(blobs, commitments, swapped) is False
+
+
+# ---------------------------------------------------------------------------
+# The multi-device step: K10, the K9 ladder, K11 (one rank; two cards)
+# ---------------------------------------------------------------------------
+
+
+def test_merkle_subtree_roots_match_plain_and_hashlib(cuda):
+    from lighthouse_tpu_torch.ops import merkle_sharded as K10
+
+    leaves_np = np.random.default_rng(50).integers(0, 256, (1 << 12, 32), dtype=np.uint8)
+    leaves = torch.from_numpy(leaves_np).to(cuda)
+    for levels in (1, 5, 9):
+        got = _launched(K10.COUNTS, "merkle_subtree_roots", lambda: K10.merkle_subtree_roots(leaves, levels))
+        assert torch.equal(got, K10.merkle_subtree_roots_plain(leaves, levels))
+    fold = leaves_np
+    while fold.shape[0] > 1:
+        fold = _hashlib_rows(fold.reshape(-1, 64))
+    assert K10.subtree_root(leaves)[0].cpu().numpy().tobytes() == fold[0].tobytes()
+
+
+@pytest.mark.parametrize("n", [1, 37, 300])
+def test_wide_ladder_and_ladder_msm_match_plain_and_host(cuda, n):
+    from chip_smoke import msm_edge_case
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq, pt_mul
+    from lighthouse_tpu_torch.ops import fr as K8
+    from lighthouse_tpu_torch.ops import msm as K9
+
+    rng = np.random.default_rng(60 + n)
+    pts, sc = msm_edge_case(rng, bls_g1_points(rng, n))
+    pt = _g1(pts, cuda)
+    s = K8.as_i32(K8.fr_to_words(sc)).to(cuda)
+    got = _launched(K2.COUNTS, "g1_scalar_mul_wide", lambda: K2.scalar_mul_wide(pt, s))
+    assert torch.equal(got, K2.scalar_mul_wide_plain(pt, s))
+    for row, p, k in zip(K2.g1_from_limbs(got.cpu().numpy()), pts, sc):
+        assert pt_eq(FQ, row, pt_mul(FQ, p, k))
+    total = K9.g1_msm_ladder(pt, s)
+    assert torch.equal(total, K9.g1_msm_ladder_plain(pt, s))
+    assert pt_eq(FQ, K2.g1_from_limbs(total.cpu().numpy())[0], msm(FQ, pts, sc))
+
+
+def test_sharded_rlc_g1_on_a_one_rank_nccl_group(cuda, tmp_path):
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, inf, pt_add, pt_eq, pt_mul
+    from lighthouse_tpu_torch.ops import bls381_sharded as K11
+    from lighthouse_tpu_torch.parallel.mesh import batch_mesh, close_mesh
+
+    rng = np.random.default_rng(70)
+    pts = bls_g1_points(rng, 131)
+    scalars = bls_scalars(rng, 131)
+    mesh = batch_mesh(0, 1, str(tmp_path / "store"), device="cuda")
+    try:
+        pt = _g1(pts, mesh.device)
+        k = K2.scalars_to_tensor(scalars).to(mesh.device)
+        before = dict(K2.COUNTS)
+        got = K11.sharded_rlc_g1(pt, k, mesh)
+        torch.cuda.synchronize()
+        assert K2.COUNTS["g1_scalar_mul"] == before["g1_scalar_mul"] + 1
+        assert K2.COUNTS["g1_segment_sum"] == before["g1_segment_sum"] + 2
+        assert torch.equal(got, K11.fold_plain(K11.local_sum_plain(pt, k)))
+    finally:
+        close_mesh(mesh)
+    want = inf(FQ)
+    for p, s in zip(pts, scalars):
+        want = pt_add(FQ, want, pt_mul(FQ, p, s))
+    assert pt_eq(FQ, K2.g1_from_limbs(got.cpu().numpy())[0], want)
+
+
+def test_dryrun_multichip_on_two_cards(cuda):
+    from lighthouse_tpu_torch.entry import dryrun_multichip
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    dryrun_multichip(2, device="cuda", timeout=600)

@@ -132,3 +132,17 @@ def test_default_cuda_kzg_never_runs_on_the_cpu():
         assert Kzg(setup, device="cpu")._dev.dev.type == "cpu"
     finally:
         set_default_device(prev)
+
+
+def test_cuda_process_group_without_a_card_raises(tmp_path):
+    """A `cuda` mesh is an NCCL group on cards or nothing: without a card
+    it raises before any group exists, and no gloo group stands in."""
+    import torch.distributed as dist
+
+    from lighthouse_tpu_torch.parallel.mesh import batch_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_gpu.py runs the NCCL group")
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch_mesh(0, 1, str(tmp_path / "store"), device="cuda")
+    assert not dist.is_initialized()

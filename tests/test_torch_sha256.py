@@ -111,11 +111,14 @@ def _c_table(src: str, name: str) -> list[int]:
 
 
 def test_cuda_source_constants_match_host_tables():
-    """The kernel's K and padding-block K+W tables are the host lanes'."""
+    """The kernel's K and padding-block K+W tables and its IV are the host
+    lanes' (they live in csrc/sha256.cuh, which sha256.cu includes)."""
     src = port_sha.SOURCE.read_text()
+    assert '#include "sha256.cuh"' in src
+    src += (port_sha.SOURCE.parent / "sha256.cuh").read_text()
     assert _c_table(src, "kK") == [int(k) for k in port_batch._K]
     assert _c_table(src, "kKWPad") == [int(k) for k in port_batch._KW_PAD]
-    iv = [int(x, 16) for x in re.findall(r"0x[0-9a-f]{8}", src.split("uint32_t st[8] =")[1][:200])]
+    iv = [int(x, 16) for x in re.findall(r"0x[0-9a-f]{8}", src.split("uint32_t iv[8] =")[1][:200])]
     assert iv == [int(v) for v in port_batch._IV]
 
 
