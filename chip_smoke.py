@@ -984,7 +984,8 @@ def _plain_ms(fn):
 
 def phase_bls_kernel_checks(seed: int) -> dict:
     """Each BLS kernel at the main path's shapes (32 lanes; [32, 512] for
-    the pubkey sums; 33 pairs), equal to its plain version on the card,
+    the pubkey sums; 33 pairs, and 2 as the KZG checks use), equal to its
+    plain version on the card,
     with its time, its plain version's time and its bound."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, G1_GEN, batch_to_affine, inf, pt_add, pt_neg, to_affine
 
@@ -1072,6 +1073,16 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             + BLS_FQ_MULS["miller_sqr"]
             + BLS_FQ_MULS["final_exp"],
             (p_aff.numel() + q_aff.numel() + 144) * W + 2 * (lanes + 1),
+        ),
+        # the KZG checks' 2-pair product (phase 7)
+        "multi_pairing[2]": (
+            lambda: k_pair.multi_pairing(p_aff[:2], no_inf[:2], q_aff[:2], no_inf[:2]),
+            lambda: k_pair.multi_pairing_plain(p_aff[:2], no_inf[:2], q_aff[:2], no_inf[:2]),
+            2 * BLS_FQ_MULS["miller_steps"]
+            + (68 * 2 - 1) * BLS_FQ_MULS["line"]
+            + BLS_FQ_MULS["miller_sqr"]
+            + BLS_FQ_MULS["final_exp"],
+            (p_aff[:2].numel() + q_aff[:2].numel() + 144) * W + 2 * 2,
         ),
         "hash_to_g2": (
             lambda: k_htc.hash_to_g2(u),
@@ -1963,6 +1974,7 @@ KZG_KERNELS = {
     "barycentric_eval": (k_fr, "kzg_fr.cu", "lighthouse_tpu/ops/fr.py:156"),
     "quotient": (k_fr, "kzg_fr.cu", "lighthouse_tpu/ops/fr.py:189"),
     "msm": (k_msm, "msm.cu", "lighthouse_tpu/ops/msm.py:94"),
+    "msm_table": (k_msm, "msm.cu", "lighthouse_tpu/ops/msm.py:94"),
 }
 
 
@@ -1988,23 +2000,41 @@ def ceremony_kzg() -> Kzg:
 
 
 def msm_fq_muls(scalars: list[int], bits: int = 255) -> dict:
-    """Pippenger's least Fq multiplications for these scalars (csrc/msm.cu's
-    header) at its best window c. Buckets: each nonzero digit after the
-    first in its bucket is one affine addition, the additions of a bucket
-    a tree whose rounds share one inversion across all buckets. Running
-    sums: per window 2^c - 2 steps, each a mixed addition (the bucket sum
-    is affine) and a Jacobian one, or both as affine additions batched
-    across the windows, whichever is fewer. Horner: c doublings and one
-    Jacobian addition per window but the top one. `bits`: the scalars'
-    width (255 for Fr, 64 for the RLC draws)."""
+    """Two least works of the MSM for these scalars, in Fq multiplications
+    (csrc/msm.cu's header).
+
+    Pippenger at its best window c: each nonzero digit after the first in
+    its bucket is one affine addition, the additions of a bucket a tree
+    whose rounds share one inversion across all buckets; running sums per
+    window 2^c - 2 steps, each a mixed addition (the bucket sum is affine)
+    and a Jacobian one, or both as affine additions batched across the
+    windows, whichever is fewer; Horner, c doublings and one Jacobian
+    addition per window but the top one.
+
+    Fixed-base over a resident table of 8-bit windows (``fixed_fq_muls``):
+    the 32 windows' digits of every scalar index table entries, all summed
+    into one set of 255 buckets by the same affine additions and shared
+    inversions; one running sum over the buckets (254 mixed and 254
+    Jacobian additions); no doublings. `bits`: the scalars' width (255
+    for Fr, 64 for the RLC draws)."""
     raw = np.frombuffer(b"".join(s.to_bytes(32, "big") for s in scalars), np.uint8).reshape(-1, 32)
     low = np.unpackbits(raw, axis=1)[:, ::-1][:, :bits].astype(np.int64)  # least significant first
     m = BLS_FQ_MULS
-    best = None
-    for c in range(1, 17):
+
+    def bucket_adds(dig: np.ndarray) -> int:
+        cnt = np.bincount(dig.ravel(), minlength=2)[1:]
+        deepest = max(int(cnt.max()), 1)
+        return int(cnt.sum() - (cnt > 0).sum()) * m["g1_affine_add"] + (deepest - 1).bit_length() * m["fq_inv"]
+
+    def windows(c: int) -> np.ndarray:
         nwin = -(-bits // c)
         b = np.pad(low, ((0, 0), (0, nwin * c - bits))).reshape(len(scalars), nwin, c)
-        dig = (b << np.arange(c)).sum(-1)
+        return (b << np.arange(c)).sum(-1)
+
+    best = None
+    for c in range(1, 17):
+        dig = windows(c)
+        nwin = dig.shape[1]
         adds, deepest = 0, 0
         for w in range(nwin):
             cnt = np.bincount(dig[:, w], minlength=1 << c)[1:]
@@ -2023,7 +2053,18 @@ def msm_fq_muls(scalars: list[int], bits: int = 255) -> dict:
         )
         if best is None or muls < best[1]:
             best = (c, muls)
-    return {"window": best[0], "fq_muls": best[1]}
+    fixed = bucket_adds(windows(8)) + 254 * (m["g1_madd"] + m["g1_add"])
+    return {"window": best[0], "fq_muls": best[1], "fixed_fq_muls": fixed}
+
+
+def msm_table_fq_muls(n: int) -> int:
+    """The least Fq multiplications of the fixed-base table of n affine
+    points: 31 windows of 8 doublings each (the first from an affine
+    point), then each of the 31n new entries made affine by one batch
+    inversion over all of them (3 products an entry and one inversion)
+    and 4 products (Z^-2, Z^-3, x, y)."""
+    m = BLS_FQ_MULS
+    return n * (m["g1_mdbl"] + (31 * 8 - 1) * m["g1_dbl"] + 31 * (3 + 4)) + m["fq_inv"]
 
 
 def _ptxas_of(lib, *kernels: str) -> dict:
@@ -2035,10 +2076,10 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
     """The KZG kernels at the main path's shapes, each equal to its plain
     version on the card and to the host for one case: the barycentric
     evaluation at [6, 4096] (a block) and [192, 4096] (a segment), the
-    quotient at 4096 lanes (z off the domain and on it), the MSM over the
-    4096 setup points with edge cases; with times, plain times and
-    bounds."""
-    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq
+    quotient at 4096 lanes (z off the domain and on it), the MSM's table of
+    the 4096 setup points with edge cases and the fixed-base MSM over it;
+    with times, plain times and bounds."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq, pt_mul, to_affine
     from lighthouse_tpu_torch.crypto.bls12_381.fields import R
 
     dev = kzg._dev.dev
@@ -2105,25 +2146,59 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
         if q != want:
             raise AssertionError(f"quotient ({label}) differs from the host formula")
 
+    # K9: the table of the edge-case points (the setup's, with a point
+    # repeated and one negated), then the fixed-base MSM over it
     pts, sc = msm_edge_case(rng, setup.g1_lagrange)
     pts_t = torch.from_numpy(k_g.g1_to_limbs(pts)).to(dev)
     sc_t = k_fr.as_i32(k_fr.fr_to_words(sc)).to(dev)
+    table = k_msm.g1_msm_table(pts_t)
+    plain_table, plain_table_ms = _plain_ms(lambda: k_msm.g1_msm_table_plain(pts_t))
+    torch.cuda.synchronize()
+    for part, got_t, want_t in zip(("xy", "inf"), table, plain_table):
+        if not torch.equal(got_t, want_t):
+            raise AssertionError(f"msm_table: the {part} differs from its plain version")
+    host_rows = [0, 1, 2, 3, 6, 7, n - 1]
+    xy = table.xy.cpu().numpy()
+    for w in (0, 1, 17, k_msm.WINDOWS - 1):
+        for i in host_rows:
+            want_xy = to_affine(FQ, pt_mul(FQ, pts[i], 1 << (k_msm.WINDOW * w)))
+            if tuple(k_g.fq_from_limbs(xy[w, i].reshape(2, 12))) != want_xy:
+                raise AssertionError(f"msm_table entry ({w}, {i}) differs from the host's pt_mul")
+    table_bytes = pts_t.numel() * 8 + table.xy.numel() * 8 + table.inf.numel()
+    out["kernels"][f"msm_table[{n}]"] = {
+        "equal_plain": True,
+        "equal_host_entries": 4 * len(host_rows),
+        "max_abs_err": _max_abs_err(table.xy, plain_table.xy),
+        "rows_differing": int((table.xy != plain_table.xy).reshape(k_msm.WINDOWS * n, -1).any(-1).sum()),
+        "ms": _time_ms(lambda: k_msm.g1_msm_table(pts_t), reps=3, warmup=1),
+        "plain_ms": plain_table_ms,
+        "library_ms": None,
+        "table_bytes": table.xy.numel() * 8 + table.inf.numel(),
+        **_bound(msm_table_fq_muls(n), table_bytes),
+    }
     least = msm_fq_muls(sc)
+    bound_pippenger = _bound(least["fq_muls"], pts_t.numel() * 8 + sc_t.numel() * 4 + 36 * 8)
+    bound_fixed = _bound(least["fixed_fq_muls"], table.xy.numel() * 8 + table.inf.numel() + sc_t.numel() * 4 + 36 * 8)
+    lower = min(bound_pippenger, bound_fixed, key=lambda b: b["bound_ms"])
     got = check(
         f"msm[{n}]",
-        lambda: k_msm.g1_msm(pts_t, sc_t),
-        lambda: k_msm.g1_msm_plain(pts_t, sc_t),
+        lambda: k_msm.g1_msm_fixed(table, sc_t),
+        lambda: k_msm.g1_msm_fixed_plain(plain_table, sc_t),
         None,
         0,
         reps=5,
-        bound=_bound(least["fq_muls"], pts_t.numel() * 8 + sc_t.numel() * 4 + 36 * 8),
+        bound=dict(lower),
         best_window=least["window"],
+        bound_pippenger=bound_pippenger,
+        bound_fixed_base=bound_fixed,
+        # a base with no table yet: the table kernel, then the fixed-base MSM
+        g1_msm_ms=_time_ms(lambda: k_msm.g1_msm(pts_t, sc_t), reps=3, warmup=1),
     )
     t0 = time.perf_counter()
     if not pt_eq(FQ, k_g.g1_from_limbs(got.cpu().numpy())[0], msm(FQ, pts, sc)):
         raise AssertionError("msm differs from the host Pippenger")
     out["kernels"][f"msm[{n}]"]["host_msm_s"] = time.perf_counter() - t0
-    zero = k_msm.g1_msm(pts_t, torch.zeros_like(sc_t))
+    zero = k_msm.g1_msm_fixed(table, torch.zeros_like(sc_t))
     if int(zero[2].abs().sum()):
         raise AssertionError("msm of zero scalars is not the infinity")
     out["registers"] = {
@@ -2191,8 +2266,9 @@ def _time_split(fn) -> dict:
 
 def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E, seed: int) -> dict:
     """Blob data availability at mainnet width on the ceremony setup, as a
-    node runs it, through the port's Kzg and DataAvailabilityChecker:
-    (a) produce the block's six commitments and blob proofs; (b) the block
+    node runs it, through the port's Kzg and DataAvailabilityChecker, on a
+    `kzg` engine that has made no MSM yet: (a) build the setup's resident
+    MSM table, produce the block's six commitments and blob proofs; (b) the block
     route: build_blob_sidecars of phase 6's signed block, put_block, then
     put_blobs -> available (DA verify of the six sidecars timed, median of
     5), a sidecar with one flipped proof byte refused; (c) a range-sync
@@ -2232,7 +2308,9 @@ def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kzg_counts()
-    # (a) produce
+    # (a) produce: a node's first MSM builds the setup's fixed-base table,
+    # which stays resident for every later commitment and proof
+    step("a_table", lambda: kzg._dev.table)
     commitments = step("a_commitments", lambda: [kzg.blob_to_kzg_commitment(b) for b in blobs])
     proofs = step("a_proofs", lambda: [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)])
     # (b) the block route
@@ -2600,7 +2678,10 @@ def phase_sharded_main_path(state, kzg, seed: int) -> dict:
             "equal_plain_ladder": True,
             "launches": launches_c,
             "ms": _median_event_ms(lambda: k_msm.g1_msm_ladder(lagrange, words)),
+            # K9: the table kernel and the fixed-base MSM, then the
+            # fixed-base MSM alone over the engine's resident table
             "pippenger_ms": _median_event_ms(lambda: k_msm.g1_msm(lagrange, words)),
+            "fixed_base_resident_ms": _median_event_ms(lambda: k_msm.g1_msm_fixed(kzg._dev.table, words)),
             "plain_ms": plain_c_ms,
         }
     finally:
@@ -2654,7 +2735,8 @@ def main(argv=None) -> int:
     blobs = kzg_blobs(np.random.default_rng(args.seed + 29), BLOBS_PER_BLOCK)
     commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
     transition, signed = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
-    blob_path = phase_blob_main_path(kzg, blobs, signed, types, MainnetEthSpec, args.seed)
+    # a fresh engine on the same setup: phase 7 builds its table in its run
+    blob_path = phase_blob_main_path(Kzg(kzg.setup), blobs, signed, types, MainnetEthSpec, args.seed)
     sharded = phase_sharded_main_path(state, kzg, args.seed)
     host_pool.reset_pool()  # stop the host pool's workers
 
@@ -2681,13 +2763,21 @@ def main(argv=None) -> int:
                     "route": "cuda",
                     "source": f"lighthouse_tpu_torch/csrc/{src}",
                     "replaces": replaces,
-                    "launches": bls_path["launches"][name],
-                    "max_abs_err": bls_checks["kernels"][name]["max_abs_err"],
+                    # K4's multi-pairing also runs the KZG checks of phase 7
+                    "launches": bls_path["launches"][name] + blob_path["launches"].get(name, 0),
+                    "max_abs_err": max(
+                        c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
+                    ),
                     "ms": bls_checks["kernels"][name]["ms"],
                     "plain_ms": bls_checks["kernels"][name]["plain_ms"],
                     "bound_ms": bls_checks["kernels"][name]["bound_ms"],
                     "bound_by": bls_checks["kernels"][name]["bound_by"],
                     "library_ms": None,
+                    **(
+                        {"ms_2_pairs": bls_checks["kernels"]["multi_pairing[2]"]["ms"]}
+                        if name == "multi_pairing"
+                        else {}
+                    ),
                 }
                 for name, (_, src, replaces) in BLS_KERNELS.items()
             ]
@@ -2724,7 +2814,7 @@ def main(argv=None) -> int:
                 }
                 for (name, (_, src, replaces)), case in zip(
                     KZG_KERNELS.items(),
-                    (f"barycentric_eval[{BLOBS_PER_BLOCK},4096]", "quotient[4096]", "msm[4096]"),
+                    (f"barycentric_eval[{BLOBS_PER_BLOCK},4096]", "quotient[4096]", "msm[4096]", "msm_table[4096]"),
                 )
             ]
             + [

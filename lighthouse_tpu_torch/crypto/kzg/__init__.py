@@ -341,15 +341,16 @@ def _g1_msm(scalars: list[int], points: list, window: int = 8) -> tuple:
 
 
 class _DeviceKzg:
-    """Per-setup device residency: the Lagrange points and the
-    bit-reversed domain live on `dev` across calls. On a CUDA device the
-    calls launch the kernels of ops/{fr,msm,bls381_pairing}; on the CPU
-    device they run the kernels' plain versions."""
+    """Per-setup device residency: the Lagrange points, their fixed-base
+    MSM table and the bit-reversed domain live on `dev` across calls. On a
+    CUDA device the calls launch the kernels of ops/{fr,msm,bls381_pairing};
+    on the CPU device they run the kernels' plain versions."""
 
     def __init__(self, setup: TrustedSetup, dev):
         self.setup = setup
         self.dev = dev
         self._points = None
+        self._table = None
         self._roots = None
         self.log_n = (setup.n - 1).bit_length()
         if (1 << self.log_n) != setup.n:
@@ -365,6 +366,17 @@ class _DeviceKzg:
 
             self._points = torch.from_numpy(g1_to_limbs(self.setup.g1_lagrange)).to(self.dev)
         return self._points
+
+    @property
+    def table(self):
+        """The fixed-base MSM table of the Lagrange points (ops/msm
+        ``FixedBaseTable``: 2^(8w) L_i for the 32 windows, affine; 24 MiB
+        at n = 4096), built at the engine's first MSM and kept."""
+        if self._table is None:
+            from ...ops.msm import g1_msm_table
+
+            self._table = g1_msm_table(self.points)
+        return self._table
 
     @property
     def roots(self):
@@ -392,11 +404,11 @@ class _DeviceKzg:
         """Σ s_i·L_i for scalars as [n, 8] canonical words (numpy, or a
         tensor already on the device) -> host Jacobian point."""
         from ...ops.bls381 import g1_from_limbs
-        from ...ops.msm import g1_msm
+        from ...ops.msm import g1_msm_fixed
 
         if isinstance(scalars, np.ndarray):
             scalars = self.to_device(scalars)
-        pt = g1_from_limbs(g1_msm(self.points, scalars).cpu().numpy())[0]
+        pt = g1_from_limbs(g1_msm_fixed(self.table, scalars).cpu().numpy())[0]
         return inf(FQ) if pt[2] == 0 else pt
 
     def quotient(self, words: np.ndarray, z: int, y: int):

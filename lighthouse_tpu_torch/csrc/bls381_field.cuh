@@ -4,8 +4,8 @@
 // Replaces the arithmetic layers of the JAX package's device BLS code:
 //   * lighthouse_tpu/ops/bls381.py (K2): mont_mul (:161), mod_add/mod_sub
 //     (:188/:193), pt_double/pt_add (:302/:319);
-//   * lighthouse_tpu/ops/bls381_tower.py (K3): f2_*/f6_*/f12_* (:77-347),
-//     fq_inv (:140), f12_frob/frob2;
+//   * lighthouse_tpu/ops/bls381_tower.py (K3): f2_* (:77-140), fq_inv
+//     (:140); its f6_*/f12_* run as team rounds in csrc/bls381_pairing.cu;
 //   * the line, cyclotomic and curve helpers of ops/bls381_pairing.py and
 //     ops/bls381_htc.py, written after the host oracle
 //     lighthouse_tpu_torch/crypto/bls12_381 (fields.py, curve.py,
@@ -198,6 +198,40 @@ DEVNI void fp_mul(fp& r, const fp& a, const fp& b) {
 
 DEV void fp_sqr(fp& r, const fp& a) { fp_mul(r, a, a); }
 
+// Two independent Montgomery products in one call: fp_mul's CIOS loops,
+// interleaved, so the two dependent chains overlap (fp_mul is out of
+// line: two calls run one after the other).
+DEVNI void fp_mul2(fp& r1, const fp& a1, const fp& b1, fp& r2, const fp& a2, const fp& b2) {
+  uint32_t t[14], u[14];
+  UNROLL for (int j = 0; j < 14; j++) { t[j] = 0; u[j] = 0; }
+  UNROLL for (int i = 0; i < 12; i++) {
+    unsigned long long c = 0, d = 0;
+    UNROLL for (int j = 0; j < 12; j++) {
+      unsigned long long s = (unsigned long long)t[j] + (unsigned long long)a1.v[j] * b1.v[i] + c;
+      unsigned long long q = (unsigned long long)u[j] + (unsigned long long)a2.v[j] * b2.v[i] + d;
+      t[j] = (uint32_t)s; c = s >> 32;
+      u[j] = (uint32_t)q; d = q >> 32;
+    }
+    unsigned long long s = (unsigned long long)t[12] + c, q = (unsigned long long)u[12] + d;
+    t[12] = (uint32_t)s; t[13] = (uint32_t)(s >> 32);
+    u[12] = (uint32_t)q; u[13] = (uint32_t)(q >> 32);
+    const uint32_t m = t[0] * BLS_NINV, mu = u[0] * BLS_NINV;
+    s = (unsigned long long)t[0] + (unsigned long long)m * BLS_P[0]; c = s >> 32;
+    q = (unsigned long long)u[0] + (unsigned long long)mu * BLS_P[0]; d = q >> 32;
+    UNROLL for (int j = 1; j < 12; j++) {
+      s = (unsigned long long)t[j] + (unsigned long long)m * BLS_P[j] + c;
+      q = (unsigned long long)u[j] + (unsigned long long)mu * BLS_P[j] + d;
+      t[j - 1] = (uint32_t)s; c = s >> 32;
+      u[j - 1] = (uint32_t)q; d = q >> 32;
+    }
+    s = (unsigned long long)t[12] + c; q = (unsigned long long)u[12] + d;
+    t[11] = (uint32_t)s; t[12] = t[13] + (uint32_t)(s >> 32);
+    u[11] = (uint32_t)q; u[12] = u[13] + (uint32_t)(q >> 32);
+  }
+  fp_reduce_once(r1, t);
+  fp_reduce_once(r2, u);
+}
+
 // a^e for a plain-integer exponent e of `nbits` bits (12 words).
 DEVNI void fp_pow(fp& r, const fp& a, const uint32_t* e, int nbits) {
   fp acc;
@@ -334,241 +368,6 @@ DEVNI bool fp2_sqrt(fp2& r, const fp2& a) {
     }
   }
   return false;
-}
-
-// ---------------------------------------------------------------------------
-// Fq6 (v^3 = xi) and Fq12 (w^2 = v), after fields.py
-// ---------------------------------------------------------------------------
-
-DEV void fp6_add(fp6& r, const fp6& a, const fp6& b) {
-  fp2_add(r.c0, a.c0, b.c0); fp2_add(r.c1, a.c1, b.c1); fp2_add(r.c2, a.c2, b.c2);
-}
-DEV void fp6_sub(fp6& r, const fp6& a, const fp6& b) {
-  fp2_sub(r.c0, a.c0, b.c0); fp2_sub(r.c1, a.c1, b.c1); fp2_sub(r.c2, a.c2, b.c2);
-}
-DEV void fp6_neg(fp6& r, const fp6& a) { fp2_neg(r.c0, a.c0); fp2_neg(r.c1, a.c1); fp2_neg(r.c2, a.c2); }
-DEV void fp6_mul_by_v(fp6& r, const fp6& a) {
-  fp2 t;
-  fp2_mul_xi(t, a.c2);
-  r.c2 = a.c1;
-  r.c1 = a.c0;
-  r.c0 = t;
-}
-
-DEVNI void fp6_mul(fp6& r, const fp6& a, const fp6& b) {
-  fp2 t0, t1, t2, x, y, s;
-  fp2_mul(t0, a.c0, b.c0);
-  fp2_mul(t1, a.c1, b.c1);
-  fp2_mul(t2, a.c2, b.c2);
-  fp6 o;
-  // c0 = t0 + xi*((a1+a2)(b1+b2) - t1 - t2)
-  fp2_add(x, a.c1, a.c2); fp2_add(y, b.c1, b.c2); fp2_mul(x, x, y);
-  fp2_add(s, t1, t2); fp2_sub(x, x, s); fp2_mul_xi(x, x); fp2_add(o.c0, t0, x);
-  // c1 = (a0+a1)(b0+b1) - t0 - t1 + xi*t2
-  fp2_add(x, a.c0, a.c1); fp2_add(y, b.c0, b.c1); fp2_mul(x, x, y);
-  fp2_add(s, t0, t1); fp2_sub(x, x, s); fp2_mul_xi(y, t2); fp2_add(o.c1, x, y);
-  // c2 = (a0+a2)(b0+b2) - t0 - t2 + t1
-  fp2_add(x, a.c0, a.c2); fp2_add(y, b.c0, b.c2); fp2_mul(x, x, y);
-  fp2_add(s, t0, t2); fp2_sub(x, x, s); fp2_add(o.c2, x, t1);
-  r = o;
-}
-
-DEVNI void fp6_inv(fp6& r, const fp6& a) {
-  fp2 c0, c1, c2, t, u;
-  fp2_sqr(c0, a.c0); fp2_mul(t, a.c1, a.c2); fp2_mul_xi(t, t); fp2_sub(c0, c0, t);
-  fp2_sqr(c1, a.c2); fp2_mul_xi(c1, c1); fp2_mul(t, a.c0, a.c1); fp2_sub(c1, c1, t);
-  fp2_sqr(c2, a.c1); fp2_mul(t, a.c0, a.c2); fp2_sub(c2, c2, t);
-  fp2 d;
-  fp2_mul(t, a.c2, c1); fp2_mul(u, a.c1, c2); fp2_add(t, t, u); fp2_mul_xi(t, t);
-  fp2_mul(d, a.c0, c0); fp2_add(d, d, t);
-  fp2_inv(d, d);
-  fp2_mul(r.c0, c0, d); fp2_mul(r.c1, c1, d); fp2_mul(r.c2, c2, d);
-}
-
-DEV void fp12_one(fp12& a) {
-  fp2_one(a.c0.c0); fp2_zero(a.c0.c1); fp2_zero(a.c0.c2);
-  fp2_zero(a.c1.c0); fp2_zero(a.c1.c1); fp2_zero(a.c1.c2);
-}
-DEV bool fp12_is_one(const fp12& a) {
-  fp12 one;
-  fp12_one(one);
-  return fp2_eq(a.c0.c0, one.c0.c0) && fp2_is_zero(a.c0.c1) && fp2_is_zero(a.c0.c2) &&
-         fp2_is_zero(a.c1.c0) && fp2_is_zero(a.c1.c1) && fp2_is_zero(a.c1.c2);
-}
-DEV void fp12_conj(fp12& r, const fp12& a) { r.c0 = a.c0; fp6_neg(r.c1, a.c1); }
-
-DEV void fp12_ld(fp12& a, const long long* s) {
-  fp2* c[6] = {&a.c0.c0, &a.c0.c1, &a.c0.c2, &a.c1.c0, &a.c1.c1, &a.c1.c2};
-  for (int k = 0; k < 6; k++) fp2_ld(*c[k], s + 24 * k);
-}
-DEV void fp12_st(long long* d, const fp12& a) {
-  const fp2* c[6] = {&a.c0.c0, &a.c0.c1, &a.c0.c2, &a.c1.c0, &a.c1.c1, &a.c1.c2};
-  for (int k = 0; k < 6; k++) fp2_st(d + 24 * k, *c[k]);
-}
-
-DEVNI void fp12_mul(fp12& r, const fp12& a, const fp12& b) {
-  fp6 t0, t1, x, y;
-  fp6_mul(t0, a.c0, b.c0);
-  fp6_mul(t1, a.c1, b.c1);
-  fp6_add(x, a.c0, a.c1);
-  fp6_add(y, b.c0, b.c1);
-  fp6_mul(x, x, y);
-  fp6_sub(x, x, t0);
-  fp6_sub(r.c1, x, t1);
-  fp6_mul_by_v(t1, t1);
-  fp6_add(r.c0, t0, t1);
-}
-
-DEVNI void fp12_sqr(fp12& r, const fp12& a) {
-  fp6 t, x, y;
-  fp6_mul(t, a.c0, a.c1);
-  fp6_add(x, a.c0, a.c1);
-  fp6_mul_by_v(y, a.c1);
-  fp6_add(y, a.c0, y);
-  fp6_mul(x, x, y);
-  fp6_sub(x, x, t);
-  fp6_mul_by_v(y, t);
-  fp6_sub(r.c0, x, y);
-  fp6_add(r.c1, t, t);
-}
-
-DEVNI void fp12_inv(fp12& r, const fp12& a) {
-  fp6 t, u;
-  fp6_mul(t, a.c0, a.c0);
-  fp6_mul(u, a.c1, a.c1);
-  fp6_mul_by_v(u, u);
-  fp6_sub(t, t, u);
-  fp6_inv(t, t);
-  fp6_mul(r.c0, a.c0, t);
-  fp6_mul(u, a.c1, t);
-  fp6_neg(r.c1, u);
-}
-
-DEV void fp6_frob(fp6& r, const fp6& a) {
-  fp2 g;
-  fp2_conj(r.c0, a.c0);
-  fp2_conj(r.c1, a.c1); fp2_const(g, BLS_G6_1); fp2_mul(r.c1, r.c1, g);
-  fp2_conj(r.c2, a.c2); fp2_const(g, BLS_G6_2); fp2_mul(r.c2, r.c2, g);
-}
-
-DEVNI void fp12_frob(fp12& r, const fp12& a) {
-  fp2 g;
-  fp6_frob(r.c0, a.c0);
-  fp6_frob(r.c1, a.c1);
-  fp2_const(g, BLS_G12);
-  fp2_mul(r.c1.c0, r.c1.c0, g);
-  fp2_mul(r.c1.c1, r.c1.c1, g);
-  fp2_mul(r.c1.c2, r.c1.c2, g);
-}
-
-// f * (c0 + c4*vw + c5*v^2 w), the sparse Miller-loop line (fields.py
-// f12_mul_by_045)
-DEV void sparse_l1(fp6& r, const fp2& x0, const fp2& x1, const fp2& x2,
-                   const fp2& c4, const fp2& c5, const fp2& c45) {
-  fp2 m1, m2, mx, t;
-  fp2_mul(m1, x1, c4);
-  fp2_mul(m2, x2, c5);
-  fp2_add(t, x1, x2);
-  fp2_mul(mx, t, c45);
-  fp2_sub(mx, mx, m1);
-  fp2_sub(mx, mx, m2);
-  fp2_mul_xi(r.c0, mx);
-  fp2_mul(t, x0, c4); fp2_mul_xi(mx, m2); fp2_add(r.c1, t, mx);
-  fp2_mul(t, x0, c5); fp2_add(r.c2, t, m1);
-}
-
-DEVNI void fp12_mul_by_045(fp12& f, const fp2& c0, const fp2& c4, const fp2& c5) {
-  fp6 ta, tb, al1, bl1;
-  fp2_mul(ta.c0, f.c0.c0, c0); fp2_mul(ta.c1, f.c0.c1, c0); fp2_mul(ta.c2, f.c0.c2, c0);
-  fp2_mul(tb.c0, f.c1.c0, c0); fp2_mul(tb.c1, f.c1.c1, c0); fp2_mul(tb.c2, f.c1.c2, c0);
-  fp2 c45;
-  fp2_add(c45, c4, c5);
-  sparse_l1(al1, f.c0.c0, f.c0.c1, f.c0.c2, c4, c5, c45);
-  sparse_l1(bl1, f.c1.c0, f.c1.c1, f.c1.c2, c4, c5, c45);
-  fp6_mul_by_v(bl1, bl1);
-  fp6_add(f.c0, ta, bl1);
-  fp6_add(f.c1, al1, tb);
-}
-
-// (a + b s)^2 in Fq4 = Fq2[s]/(s^2 - xi): (a^2 + xi b^2, 2ab)
-DEV void f4_sqr(fp2& r0, fp2& r1, const fp2& a, const fp2& b) {
-  fp2 t0, t1, s;
-  fp2_sqr(t0, a);
-  fp2_sqr(t1, b);
-  fp2_add(s, a, b);
-  fp2_sqr(s, s);
-  fp2_sub(s, s, t0);
-  fp2_sub(r1, s, t1);
-  fp2_mul_xi(t1, t1);
-  fp2_add(r0, t1, t0);
-}
-
-// 3t - 2z and 3t + 2z
-DEV void cyc_minus(fp2& z, const fp2& t) {
-  fp2 d;
-  fp2_sub(d, t, z); fp2_add(d, d, d); fp2_add(z, d, t);
-}
-DEV void cyc_plus(fp2& z, const fp2& t) {
-  fp2 d;
-  fp2_add(d, t, z); fp2_add(d, d, d); fp2_add(z, d, t);
-}
-
-// f^2 for f in the cyclotomic subgroup (Granger-Scott; fields.py
-// f12_cyclotomic_sqr). Layout ((z0, z4, z3), (z2, z1, z5)).
-DEVNI void fp12_cyc_sqr(fp12& f) {
-  fp2 t0, t1, t2, t3;
-  fp2& z0 = f.c0.c0; fp2& z4 = f.c0.c1; fp2& z3 = f.c0.c2;
-  fp2& z2 = f.c1.c0; fp2& z1 = f.c1.c1; fp2& z5 = f.c1.c2;
-  f4_sqr(t0, t1, z0, z1);
-  cyc_minus(z0, t0);
-  cyc_plus(z1, t1);
-  fp2 t0b, t1b;
-  f4_sqr(t0b, t1b, z2, z3);
-  f4_sqr(t2, t3, z4, z5);
-  cyc_minus(z4, t0b);
-  cyc_plus(z5, t1b);
-  fp2_mul_xi(t0, t3);
-  cyc_plus(z2, t0);
-  cyc_minus(z3, t2);
-}
-
-// f^e, e > 0 a 64-bit exponent, f cyclotomic (fields.py f12_cyclotomic_pow)
-DEVNI void fp12_cyc_pow(fp12& r, const fp12& f, unsigned long long e) {
-  fp12 res = f;
-  int top = 63;
-  while (!((e >> top) & 1)) top--;
-  for (int i = top - 1; i >= 0; i--) {
-    fp12_cyc_sqr(res);
-    if ((e >> i) & 1) fp12_mul(res, res, f);
-  }
-  r = res;
-}
-
-// f^((p^12 - 1)/r), exact (pairing.py final_exponentiation)
-DEVNI void final_exponentiation(fp12& r, const fp12& f) {
-  fp12 t, u, y, y2;
-  fp12_conj(t, f);
-  fp12_inv(u, f);
-  fp12_mul(t, t, u);          // f^(p^6 - 1)
-  fp12_frob(u, t);
-  fp12_frob(u, u);
-  fp12_mul(t, u, t);          // ^(p^2 + 1)
-  fp12_cyc_pow(y, t, BLS_M1);
-  fp12_conj(y, y);            // t^((x-1)/3)
-  fp12_cyc_pow(y, y, BLS_M2);
-  fp12_conj(y, y);            // t^((x-1)^2/3)
-  fp12_cyc_pow(u, y, BLS_X_ABS);
-  fp12_conj(u, u);
-  fp12_frob(y2, y);
-  fp12_mul(y, u, y2);         // ^(x + p)
-  fp12_cyc_pow(y2, y, BLS_X_ABS);
-  fp12_cyc_pow(y2, y2, BLS_X_ABS);
-  fp12_frob(u, y);
-  fp12_frob(u, u);
-  fp12_mul(y2, y2, u);
-  fp12_conj(u, y);
-  fp12_mul(y, y2, u);         // ^(x^2 + p^2 - 1)
-  fp12_mul(r, y, t);
 }
 
 // ---------------------------------------------------------------------------

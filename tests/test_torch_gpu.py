@@ -150,18 +150,28 @@ def test_bls_subgroup_check_matches_plain(cuda):
     assert torch.equal(ok, K4.g2_subgroup_check_plain(q, q_inf))
 
 
-def test_bls_multi_pairing_matches_plain(cuda):
+@pytest.mark.parametrize("m, infinity", [(1, ()), (2, ()), (3, (2,)), (33, (5,)), (65, (0, 64)), (4, "all")])
+def test_bls_multi_pairing_matches_plain(cuda, m, infinity):
+    """One Miller-loop team per pair over as many blocks as the pairs need
+    (65: 17 blocks), the tree over the pairs and the final exponentiation,
+    limb-equal to the plain version; infinity pairs are the identity."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, to_affine
 
-    rng = np.random.default_rng(14)
-    p = [to_affine(FQ, x) for x in bls_g1_points(rng, 3)]
-    q = [to_affine(FQ2, x) for x in bls_g2_points(rng, 3)]
-    pt = torch.from_numpy(K2.fq_to_limbs([v for a in p for v in a]).reshape(3, 2, 12)).to(cuda)
-    qt = torch.from_numpy(K2.fq_to_limbs([v for a in q for c in a for v in c]).reshape(3, 2, 2, 12)).to(cuda)
-    p_inf = torch.tensor([False, False, True], device=cuda)
-    q_inf = torch.tensor([False, False, False], device=cuda)
+    rng = np.random.default_rng(14 + m)
+    p = [to_affine(FQ, x) for x in bls_g1_points(rng, m)]
+    q = [to_affine(FQ2, x) for x in bls_g2_points(rng, m)]
+    pt = torch.from_numpy(K2.fq_to_limbs([v for a in p for v in a]).reshape(m, 2, 12)).to(cuda)
+    qt = torch.from_numpy(K2.fq_to_limbs([v for a in q for c in a for v in c]).reshape(m, 2, 2, 12)).to(cuda)
+    p_inf = torch.zeros(m, dtype=torch.bool, device=cuda)
+    q_inf = torch.zeros(m, dtype=torch.bool, device=cuda)
+    if infinity == "all":
+        p_inf[:] = True
+    else:
+        p_inf[list(infinity)] = True
     got = _launched(K4.COUNTS, "multi_pairing", lambda: K4.multi_pairing(pt, p_inf, qt, q_inf))
     assert torch.equal(got, K4.multi_pairing_plain(pt, p_inf, qt, q_inf))
+    if infinity == "all":
+        assert K4.f12_is_one(got)
 
 
 def test_bls_hash_to_g2_matches_plain(cuda):
@@ -277,6 +287,11 @@ def test_kzg_quotient_matches_plain_and_host(cuda, on_domain):
 
 @pytest.mark.parametrize("n", [1, 37, 300])
 def test_msm_matches_plain_and_host(cuda, n):
+    """g1_msm (the table kernel, then the fixed-base MSM) limb-equal to its
+    plain version and equal to the host MSM, with msm_edge_case's zero
+    scalars, r - 1, a repeated and a negated point; the table equal to the
+    plain table; all-equal scalars (every entry of a window in one
+    bucket) and zero scalars."""
     from chip_smoke import msm_edge_case
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq
     from lighthouse_tpu_torch.ops import fr as K8
@@ -289,8 +304,34 @@ def test_msm_matches_plain_and_host(cuda, n):
     got = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm(pt, s))
     assert torch.equal(got, K9.g1_msm_plain(pt, s))
     assert pt_eq(FQ, K2.g1_from_limbs(got.cpu().numpy())[0], msm(FQ, pts, sc))
-    zero = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm(pt, torch.zeros_like(s)))
+    table = _launched(K9.COUNTS, "msm_table", lambda: K9.g1_msm_table(pt))
+    plain = K9.g1_msm_table_plain(pt)
+    assert torch.equal(table.xy, plain.xy) and torch.equal(table.inf, plain.inf)
+    same = K8.as_i32(K8.fr_to_words([sc[-1] or 5] * n)).to(cuda)
+    got = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm_fixed(table, same))
+    assert torch.equal(got, K9.g1_msm_fixed_plain(plain, same))
+    zero = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm_fixed(table, torch.zeros_like(s)))
     assert int(zero[2].abs().sum()) == 0  # infinity
+
+
+def test_msm_over_the_resident_table_of_the_dev_setup(cuda):
+    """The KZG engine's resident table over the 64-point dev setup: built
+    once at the first MSM, equal to the plain table, and every commitment
+    through it equal to the host engine's."""
+    from chip_smoke import kzg_blobs
+    from lighthouse_tpu_torch.crypto.kzg import Kzg, TrustedSetup
+    from lighthouse_tpu_torch.ops import msm as K9
+
+    setup = TrustedSetup.insecure_dev(64)
+    kzg, host = Kzg(setup), Kzg(setup, device=False)
+    blobs = kzg_blobs(np.random.default_rng(41), 3, 64)
+    before = dict(K9.COUNTS)
+    commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+    assert K9.COUNTS["msm_table"] == before["msm_table"] + 1
+    assert K9.COUNTS["msm"] == before["msm"] + 3
+    assert commitments == [host.blob_to_kzg_commitment(b) for b in blobs]
+    plain = K9.g1_msm_table_plain(kzg._dev.points)
+    assert torch.equal(kzg._dev.table.xy, plain.xy) and torch.equal(kzg._dev.table.inf, plain.inf)
 
 
 def test_kzg_six_blobs_on_the_ceremony_setup(cuda):
@@ -302,12 +343,12 @@ def test_kzg_six_blobs_on_the_ceremony_setup(cuda):
 
     kzg = ceremony_kzg()
     blobs = kzg_blobs(np.random.default_rng(40), 6)
-    before = (K8.COUNTS["barycentric_eval"], K8.COUNTS["quotient"], K9.COUNTS["msm"])
+    before = (K8.COUNTS["barycentric_eval"], K8.COUNTS["quotient"], K9.COUNTS["msm"], K9.COUNTS["msm_table"])
     commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
     proofs = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)]
     assert kzg.verify_blob_kzg_proof_batch(blobs, commitments, proofs) is True
-    after = (K8.COUNTS["barycentric_eval"], K8.COUNTS["quotient"], K9.COUNTS["msm"])
-    assert [a - b for a, b in zip(after, before)] == [7, 6, 12]
+    after = (K8.COUNTS["barycentric_eval"], K8.COUNTS["quotient"], K9.COUNTS["msm"], K9.COUNTS["msm_table"])
+    assert [a - b for a, b in zip(after, before)] == [7, 6, 12, 1]
     swapped = proofs[1:2] + proofs[:1] + proofs[2:]
     assert kzg.verify_blob_kzg_proof_batch(blobs, commitments, swapped) is False
 

@@ -108,8 +108,9 @@ def test_barycentric_and_quotient_match_jax_kernels():
 
 
 def test_plain_pippenger_matches_host_msms():
-    """K9's plain version (the kernel's steps) against the JAX package's
-    host MSMs (crypto/kzg _g1_msm and crypto/bls12_381 msm), over 40 points
+    """K9's plain versions (the table's steps, then the fixed-base MSM's)
+    against the JAX package's host MSMs (crypto/kzg _g1_msm and
+    crypto/bls12_381 msm), over 40 points
     with zero scalars, r - 1, a repeated point with its scalar and a point
     beside its negation."""
     rng = np.random.default_rng(6)
