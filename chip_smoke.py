@@ -15,12 +15,14 @@ each, any failure ends the run with a non-zero exit code:
 3. kernel checks: the SHA-256 kernel byte-equal to its plain version on the
    card and to hashlib; then each BLS kernel (G1/G2 ladders, segment sums
    and affine conversion, the G2 subgroup check, the multi-pairing,
-   hash-to-G2) equal to its plain version at the BLS main path's shapes;
+   hash-to-G2 with edge lanes: u = 0, a non-square g(x1), u1 = u0) equal
+   to its plain version at the BLS main path's shapes;
    each with its time, the plain version's time and its bound; the
    epoch-sweep kernel equal to its plain version at 2^20 validators,
    in and out of the inactivity leak, with edge rows; and, on the mainnet
    KZG ceremony's setup, the KZG kernels: the barycentric evaluation at
-   [6, 4096] and [192, 4096], the opening quotient at 4096 lanes (z off
+   [1, 4096], [6, 4096] (also with one z on the domain) and [192, 4096],
+   the opening quotient at 4096 lanes (z off
    the domain and on it) and the G1 Pippenger MSM over the 4096 setup
    points with edge cases, each equal to its plain version and, for one
    case, to the host; then the multi-device step's kernels: the Merkle
@@ -159,14 +161,23 @@ FR_MUL_MIN_OPS = 8 * 8 * 2 * 2 + 8
 # Least Fr multiplications of the KZG functions (derived in
 # csrc/kzg_fr.cu's header), with Montgomery's batch inversion: 3 products
 # per inverted element and one inversion per batch, at the floor of any
-# addition chain for r - 2.
+# addition chain for r - 2. The barycentric sum is z S1 - S0 with S1 =
+# sum p_i / (z - w_i) a fraction tree: a blob of n terms costs 3n - 3
+# (n - 1 fraction adds of 3; S0 takes additions only).
 FR_MULS = {
     "inv": 255,
     "batch_inv": 3,  # per element
-    "bary_term": 2,  # p_i * w_i * inv
-    "bary_blob": 14,  # z^n (12 squarings) and 2 final products, per blob
+    "bary_term": 3,  # a fraction add; 3 fewer per blob
+    "bary_blob": 16,  # z^n (12 squarings) and (z N D^-1 - S0) (z^n - 1) n^-1, per blob
     "quotient_term": 1,  # (p_i - y) * inv
 }
+
+
+def bary_fr_muls(m: int, n: int) -> int:
+    """The least Fr multiplications of m barycentric evaluations of n
+    points: the fraction trees, each blob's finish, the batch inversion of
+    the m denominators."""
+    return (FR_MULS["bary_term"] * n - 3 + FR_MULS["bary_blob"] + FR_MULS["batch_inv"]) * m + FR_MULS["inv"]
 
 # The epoch sweep (derived in csrc/epoch_sweep.cu's header): the bytes a
 # validator moves (six u64 columns, the slashed and participation bytes
@@ -479,6 +490,40 @@ def bls_twist_point_outside_subgroup(rng: np.random.Generator):
         y = F.f2_sqrt(F.f2_add(F.f2_mul(F.f2_sqr(x), x), B2))
         if y is not None and not g2_in_subgroup((x, y, FQ2.one)):
             return (x, y)
+
+
+def htc_gx1_is_square(u: tuple) -> bool:
+    """Is g(x1) a square for the field element u (an Fq2 pair), x1 the
+    first SSWU candidate (the host oracle's map_to_curve_sswu)?"""
+    from lighthouse_tpu_torch.crypto.bls12_381 import fields as F
+    from lighthouse_tpu_torch.crypto.bls12_381 import hash_to_curve as HH
+
+    z_u2 = F.f2_mul(HH._Z, F.f2_sqr(u))
+    tv = F.f2_add(F.f2_sqr(z_u2), z_u2)
+    x1 = HH._B_OVER_ZA if F.f2_is_zero(tv) else F.f2_mul(HH._MINUS_B_OVER_A, F.f2_add(F.F2_ONE, F.f2_inv(tv)))
+    gx1 = F.f2_add(F.f2_add(F.f2_mul(F.f2_sqr(x1), x1), F.f2_mul(HH._A, x1)), HH._B)
+    return F.f2_sqrt(gx1) is not None
+
+
+def htc_edge_field_elements(rng: np.random.Generator, lanes: int) -> tuple[np.ndarray, dict]:
+    """hash_to_field output ([lanes, 2, 2, 12] Montgomery limbs) of seeded
+    32-byte messages, with message 0's u0 and u1 both 0 (RFC 9380's
+    tv2 = 0 exception) and message 1's u0 one whose g(x1) is not a square
+    (the first such u of the seeded messages), and the last message's u1
+    equal to its u0 (the two maps meet: the sum on E' doubles). Returns the
+    limbs and {"zero": [0], "non_square": [lanes whose u0 or u1 is not a
+    square], "equal": [lanes - 1]}."""
+    from lighthouse_tpu_torch.ops import bls381 as k_g
+    from lighthouse_tpu_torch.ops import bls381_htc as k_htc
+
+    u = k_htc.messages_to_field([rng.bytes(32) for _ in range(lanes)])
+    vals = np.array(k_g.fq_from_limbs(u), dtype=object).reshape(lanes, 2, 2)
+    square = [[htc_gx1_is_square(tuple(vals[i, j])) for j in range(2)] for i in range(lanes)]
+    i, j = next((i, j) for i in range(2, lanes) for j in range(2) if not square[i][j])
+    u[1, 0], square[1][0] = u[i, j], False
+    u[0] = 0
+    u[-1, 1], square[-1][1] = u[-1, 0], square[-1][0]
+    return u, {"zero": [0], "non_square": [i for i in range(1, lanes) if not all(square[i])], "equal": [lanes - 1]}
 
 
 def _g1_affine_bytes(x: int, y: int) -> bytes:
@@ -1016,8 +1061,10 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     p_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g1_aff for v in a]).reshape(-1, 2, 12)).to(dev)
     q_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g2_aff for c in a for v in c]).reshape(-1, 2, 2, 12)).to(dev)
     no_inf = torch.zeros(lanes + 1, dtype=torch.bool, device=dev)
-    msgs = [rng.bytes(32) for _ in range(lanes)]
-    u = torch.from_numpy(k_htc.messages_to_field(msgs)).to(dev)
+    # seeded messages' field elements with u = 0 in lane 0 and a u whose
+    # g(x1) is not a square in lane 1
+    u_np, htc_lanes = htc_edge_field_elements(rng, lanes)
+    u = torch.from_numpy(u_np).to(dev)
 
     W = 8  # bytes per limb as the card moves them
     cases = {
@@ -1091,7 +1138,14 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             u.numel() * W + lanes * 72 * W,
         ),
     }
-    out = {"phase": "bls_kernel_checks", "lanes": lanes, "segment": [lanes, k], "pairs": lanes + 1, "kernels": {}}
+    out = {
+        "phase": "bls_kernel_checks",
+        "lanes": lanes,
+        "segment": [lanes, k],
+        "pairs": lanes + 1,
+        "hash_to_g2_edge_lanes": htc_lanes,
+        "kernels": {},
+    }
     for name, (kernel, plain, fq_muls, nbytes) in cases.items():
         got = kernel()
         want, plain_ms = _plain_ms(plain)
@@ -1103,6 +1157,7 @@ def phase_bls_kernel_checks(seed: int) -> dict:
         out["kernels"][name] = {
             "equal_plain": True,
             "max_abs_err": err,
+            "rows_differing": int((got != want).reshape(max(got.shape[0], 1), -1).any(-1).sum()) if got.dim() else 0,
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": None,
@@ -1112,6 +1167,7 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     sub = k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes])
     if not bool(sub.all()):
         raise AssertionError("g2_subgroup_check rejected subgroup points")
+    out["registers"] = {"bls381_htc.cu": _ptxas_of(k_htc.LIB, "hash_to_g2")}
     emit(out)
     return out
 
@@ -2075,7 +2131,8 @@ def _ptxas_of(lib, *kernels: str) -> dict:
 def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
     """The KZG kernels at the main path's shapes, each equal to its plain
     version on the card and to the host for one case: the barycentric
-    evaluation at [6, 4096] (a block) and [192, 4096] (a segment), the
+    evaluation at [1, 4096] (a proof), [6, 4096] (a block, and six with
+    one z on the domain) and [192, 4096] (a segment), the
     quotient at 4096 lanes (z off the domain and on it), the MSM's table of
     the 4096 setup points with edge cases and the fixed-base MSM over it;
     with times, plain times and bounds."""
@@ -2110,22 +2167,27 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
         }
         return got
 
-    for m in (BLOBS_PER_BLOCK, BLOBS_PER_BLOCK * SEGMENT_BLOCKS):
+    # a proof's one blob, a block's six, a segment's 192, and six with one
+    # z on the domain (its y is 0; the others as off the domain)
+    for m, on_domain in ((1, None), (BLOBS_PER_BLOCK, None), (BLOBS_PER_BLOCK * SEGMENT_BLOCKS, None), (BLOBS_PER_BLOCK, 2)):
         words = np.stack([k_fr.words_from_bytes(b, n) for b in kzg_blobs(rng, m, n)])
         zs = fr_scalars(rng, m)
+        if on_domain is not None:
+            zs[on_domain] = setup.roots_brp[77]
         ev, zt = k_fr.as_i32(words).to(dev), k_fr.as_i32(k_fr.fr_to_words(zs)).to(dev)
         got = check(
-            f"barycentric_eval[{m},{n}]",
+            f"barycentric_eval[{m},{n}]" + ("" if on_domain is None else ":on_domain"),
             lambda: k_fr.barycentric_eval(ev, roots_t, zt),
             lambda: k_fr.barycentric_eval_plain(ev, roots_t, zt),
-            (FR_MULS["batch_inv"] + FR_MULS["bary_term"]) * m * n + FR_MULS["inv"] + FR_MULS["bary_blob"] * m,
+            bary_fr_muls(m, n),
             ev.numel() * 4 + roots_t.numel() * 4 + 2 * zt.numel() * 4,
-            reps=5 if m == BLOBS_PER_BLOCK else 3,
+            reps=3 if m > BLOBS_PER_BLOCK else 5,
         )
-        if m == BLOBS_PER_BLOCK:
-            y0 = kzg._evaluate_host(k_fr.fr_from_words(words[0]), zs[0])
-            if k_fr.fr_from_words(got[:1].cpu().numpy())[0] != y0:
-                raise AssertionError("barycentric_eval differs from the host's _evaluate_host")
+        ys = k_fr.fr_from_words(got.cpu().numpy())
+        for j in (0, on_domain) if on_domain is not None else (0,):
+            want = 0 if j == on_domain else kzg._evaluate_host(k_fr.fr_from_words(words[j]), zs[j])
+            if ys[j] != want:
+                raise AssertionError(f"barycentric_eval[{m},{n}] blob {j} differs from the host")
 
     words = k_fr.words_from_bytes(kzg_blobs(rng, 1, n)[0], n)
     ev = k_fr.as_i32(words).to(dev)
@@ -2341,6 +2403,7 @@ def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E,
     chk_cols.put_block(root, signed, slot=slot)
     col_avail = step("d_put_columns", lambda: chk_cols.put_columns(root, [columns[j] for j in kept], slot=slot))
     counts = kzg_counts()
+    bary_by_blobs = dict(sorted(k_fr.BARYCENTRIC_BY_BLOBS.items()))
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
@@ -2403,6 +2466,7 @@ def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E,
         "segment_blobs_per_s": len(seg_blobs) / seg_med,
         "launches": counts,
         "launches_per_step": launches,
+        "barycentric_launches_by_blobs": bary_by_blobs,
         "max_memory_allocated_bytes": peak,
         "host_commitment_msm_s": host_msm_s,
         "split_b_da_verify": split_b,
@@ -2811,6 +2875,15 @@ def main(argv=None) -> int:
                         for key in ("ms", "plain_ms", "bound_ms", "bound_by")
                     },
                     "library_ms": None,
+                    **(
+                        {
+                            "ms_1_blob": kzg_checks["kernels"]["barycentric_eval[1,4096]"]["ms"],
+                            "ms_192_blobs": kzg_checks["kernels"][f"barycentric_eval[{BLOBS_PER_BLOCK * SEGMENT_BLOCKS},4096]"]["ms"],
+                            "launches_by_blobs": blob_path["barycentric_launches_by_blobs"],
+                        }
+                        if name == "barycentric_eval"
+                        else {}
+                    ),
                 }
                 for (name, (_, src, replaces)), case in zip(
                     KZG_KERNELS.items(),

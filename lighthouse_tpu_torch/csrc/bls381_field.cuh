@@ -7,7 +7,8 @@
 //   * lighthouse_tpu/ops/bls381_tower.py (K3): f2_* (:77-140), fq_inv
 //     (:140); its f6_*/f12_* run as team rounds in csrc/bls381_pairing.cu;
 //   * the line, cyclotomic and curve helpers of ops/bls381_pairing.py and
-//     ops/bls381_htc.py, written after the host oracle
+//     ops/bls381_htc.py (K5's maps and team rounds are its own, in
+//     bls381_htc.cu), written after the host oracle
 //     lighthouse_tpu_torch/crypto/bls12_381 (fields.py, curve.py,
 //     pairing.py, hash_to_curve.py), so that every function here computes
 //     the same field element as its host counterpart.
@@ -58,7 +59,6 @@ CONSTMEM uint32_t BLS_ONE[12] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf400
 // exponents (plain integers)
 CONSTMEM uint32_t BLS_P_MINUS_2[12] = {0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 CONSTMEM uint32_t BLS_SQRT_EXP[12] = {0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
-CONSTMEM uint32_t BLS_INV2[12] = {0x00015554u, 0x18040000u, 0x3ab00001u, 0x85500005u, 0x253c276fu, 0x633cb57cu, 0x31ebb502u, 0x6e22d1ecu, 0xf2d14ca2u, 0xd3916126u, 0x1a006596u, 0x17fbb857u};
 CONSTMEM uint32_t BLS_B2[2][12] = {{0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u}, {0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u}};
 CONSTMEM uint32_t BLS_G6_1[2][12] = {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}, {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu, 0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u}};
 CONSTMEM uint32_t BLS_G6_2[2][12] = {{0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu, 0x50880866u, 0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu, 0x1564853au, 0x14e56d3fu}, {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}};
@@ -68,13 +68,9 @@ CONSTMEM uint32_t BLS_PSI_CY[2][12] = {{0xa55c9ad1u, 0x3e2f585du, 0x86c18183u, 0
 CONSTMEM uint32_t BLS_SSWU_A[2][12] = {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}, {0x03135242u, 0xe53a0000u, 0xdef80285u, 0x01080c0fu, 0xe340f6bdu, 0xe7889edbu, 0x26310601u, 0x0b513751u, 0x17c744abu, 0x02d69857u, 0x79ea5467u, 0x1220b4e9u}};
 CONSTMEM uint32_t BLS_SSWU_B[2][12] = {{0x0cf89db2u, 0x22ea0000u, 0x71380aa4u, 0x6ec832dfu, 0x3db5a66eu, 0x6e1b9440u, 0xa79473bau, 0x75bf3c53u, 0x412c0a34u, 0x3dd3a569u, 0x74dc4fd1u, 0x125cdb5eu}, {0x0cf89db2u, 0x22ea0000u, 0x71380aa4u, 0x6ec832dfu, 0x3db5a66eu, 0x6e1b9440u, 0xa79473bau, 0x75bf3c53u, 0x412c0a34u, 0x3dd3a569u, 0x74dc4fd1u, 0x125cdb5eu}};
 CONSTMEM uint32_t BLS_SSWU_Z[2][12] = {{0xfff9555cu, 0x87ebffffu, 0xda8ffffau, 0x656fffe5u, 0x45d33ad2u, 0x0fd07493u, 0x066576f4u, 0xd951e663u, 0x41e980d3u, 0xde291a3du, 0x7dfe040du, 0x0815664cu}, {0xfffcaaaeu, 0x43f5ffffu, 0xed47fffdu, 0x32b7fff2u, 0xa2e99d69u, 0x07e83a49u, 0x8332bb7au, 0xeca8f331u, 0xa0f4c069u, 0xef148d1eu, 0x3eff0206u, 0x040ab326u}};
-CONSTMEM uint32_t BLS_SSWU_MINUS_B_OVER_A[2][12] = {{0x55474fb3u, 0x903c5555u, 0xce451105u, 0x5f98cc95u, 0xefe0fadeu, 0x9f8e582eu, 0xaebbd062u, 0xc68946b6u, 0x0ee6de53u, 0x467a4ad1u, 0x83e23a05u, 0x0e7146f4u}, {0xaab85af8u, 0x29c2aaaau, 0xe30eeefau, 0xbf133368u, 0x06cffb45u, 0xc7a27a72u, 0x44c9425cu, 0x9dee04ceu, 0x3464ce83u, 0x04a15ce5u, 0xb59dac95u, 0x0b8fcaf5u}};
-CONSTMEM uint32_t BLS_SSWU_B_OVER_ZA[2][12] = {{0x44414324u, 0xf2d84444u, 0x93a69d00u, 0x2585c283u, 0x5d972c42u, 0x5dd35cd0u, 0x4ea89b53u, 0xfd963b74u, 0x91c1fa91u, 0x07f5d9fdu, 0x3ce062c4u, 0x127db28au}, {0x333b3695u, 0x55743333u, 0x590828fcu, 0xeb72b871u, 0xcb4d5da5u, 0x1c186171u, 0xee956644u, 0x34a33031u, 0x149d16d0u, 0xc971692au, 0xf5de8b82u, 0x168a1e1fu}};
 CONSTMEM uint32_t BLS_SSWU_X0[2][12] = {{0xffec0014u, 0x97c3ffffu, 0x8fafffefu, 0x304fffb1u, 0xd179b077u, 0x2f715db9u, 0x133064dcu, 0x8bf5b329u, 0xc5bc827bu, 0x9a7b4eb7u, 0x79fa0c29u, 0x184032e5u}, {0x0013aa97u, 0x223b0000u, 0x21a40010u, 0xee5c004du, 0x253745acu, 0x37bf74e7u, 0xe054ade3u, 0xd881985bu, 0x7d8f2a5bu, 0xb0a058feu, 0xbf85da70u, 0x01c0df04u}};
 CONSTMEM uint32_t BLS_SSWU_T[2][12] = {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}, {0x009d54b8u, 0x11d80000u, 0x0d200081u, 0x72e00269u, 0x29ba2d67u, 0xbdfba739u, 0x02a56f19u, 0xc40cc2dfu, 0xec7952deu, 0x8502c7f3u, 0xfc2ed385u, 0x0e06f825u}};
 CONSTMEM uint32_t BLS_SSWU_U[2][12] = {{0x00345521u, 0xee9d0000u, 0x3f7c002au, 0x308400cdu, 0xb5790bd9u, 0xb70ed348u, 0xa763809du, 0x62d6af76u, 0xba96ffe7u, 0xf00a2538u, 0xbc8f935fu, 0x0d58035au}, {0x00345521u, 0xee9d0000u, 0x3f7c002au, 0x308400cdu, 0xb5790bd9u, 0xb70ed348u, 0xa763809du, 0x62d6af76u, 0xba96ffe7u, 0xf00a2538u, 0xbc8f935fu, 0x0d58035au}};
-CONSTMEM uint32_t BLS_SSWU_INV9[2][12] = {{0x71c725edu, 0x40aac71cu, 0x7a84e38eu, 0x19095555u, 0x8f41abc3u, 0xd817050au, 0xc87f6fb1u, 0xd86485d4u, 0xf885d059u, 0x696eb479u, 0x328002d2u, 0x198e1a74u}, {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}};
-CONSTMEM uint32_t BLS_SSWU_INV27[2][12] = {{0xd097b74fu, 0x158e425eu, 0x7e2c4bdau, 0x5dadc71cu, 0x2fc08e96u, 0x9d5d01aeu, 0x982a7a90u, 0x482181f1u, 0x52d74573u, 0x2324e6d3u, 0x10d55646u, 0x0884b37cu}, {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}};
 #define BLS_X_ABS 0xd201000000010000ull
 #define BLS_M1 0x460055555555aaabull
 #define BLS_M2 0xd201000000010001ull
@@ -167,6 +163,20 @@ DEV void fp_neg(fp& r, const fp& a) {
   fp_sub(r, z, a);
 }
 
+// a / 2 mod p: (a + p) / 2 for an odd a (a + p < 2^382: no carry out)
+DEV void fp_half(fp& r, const fp& a) {
+  uint32_t t[12];
+  const uint32_t odd = a.v[0] & 1u;
+  unsigned long long c = 0;
+  UNROLL for (int j = 0; j < 12; j++) {
+    c += (unsigned long long)a.v[j] + (odd ? BLS_P[j] : 0u);
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  UNROLL for (int j = 0; j < 11; j++) r.v[j] = (t[j] >> 1) | (t[j + 1] << 31);
+  r.v[11] = t[11] >> 1;
+}
+
 // Montgomery product a*b*2^-384 mod p (CIOS, 32-bit words).
 DEVNI void fp_mul(fp& r, const fp& a, const fp& b) {
   uint32_t t[14];
@@ -245,14 +255,6 @@ DEVNI void fp_pow(fp& r, const fp& a, const uint32_t* e, int nbits) {
 
 DEV void fp_inv(fp& r, const fp& a) { fp_pow(r, a, BLS_P_MINUS_2, 381); }  // 0 -> 0
 
-// canonical (non-Montgomery) value
-DEV void fp_from_mont(fp& r, const fp& a) {
-  fp one;
-  fp_zero(one);
-  one.v[0] = 1;
-  fp_mul(r, a, one);
-}
-
 // ---------------------------------------------------------------------------
 // Fq2 (u^2 = -1)
 // ---------------------------------------------------------------------------
@@ -266,7 +268,6 @@ DEV void fp2_sub(fp2& r, const fp2& a, const fp2& b) { fp_sub(r.c0, a.c0, b.c0);
 DEV void fp2_neg(fp2& r, const fp2& a) { fp_neg(r.c0, a.c0); fp_neg(r.c1, a.c1); }
 DEV void fp2_conj(fp2& r, const fp2& a) { r.c0 = a.c0; fp_neg(r.c1, a.c1); }
 DEV void fp2_dbl(fp2& r, const fp2& a) { fp2_add(r, a, a); }
-DEV void fp2_mul_fp(fp2& r, const fp2& a, const fp& s) { fp_mul(r.c0, a.c0, s); fp_mul(r.c1, a.c1, s); }
 
 DEVNI void fp2_mul(fp2& r, const fp2& a, const fp2& b) {
   fp t0, t1, sa, sb, x;
@@ -298,12 +299,6 @@ DEV void fp2_mul_xi(fp2& r, const fp2& a) {
   r.c1 = t1;
 }
 
-DEV void fp2_half(fp2& r, const fp2& a) {
-  fp h;
-  fp_const(h, BLS_INV2);
-  fp2_mul_fp(r, a, h);
-}
-
 DEVNI void fp2_inv(fp2& r, const fp2& a) {
   fp n, t;
   fp_sqr(n, a.c0);
@@ -313,61 +308,6 @@ DEVNI void fp2_inv(fp2& r, const fp2& a) {
   fp_mul(r.c0, a.c0, n);
   fp_mul(t, a.c1, n);
   fp_neg(r.c1, t);
-}
-
-// RFC 9380 sgn0 for m = 2, on canonical values
-DEV int fp2_sgn0(const fp2& a) {
-  fp c0, c1;
-  fp_from_mont(c0, a.c0);
-  fp_from_mont(c1, a.c1);
-  int s0 = c0.v[0] & 1, z0 = fp_is_zero(c0), s1 = c1.v[0] & 1;
-  return s0 | (z0 & s1);
-}
-
-// Square root in Fq2 (p = 3 mod 4), the complex method of the host oracle
-// (fields.py f2_sqrt). Returns false if `a` is not a square.
-DEVNI bool fp2_sqrt(fp2& r, const fp2& a) {
-  if (fp2_is_zero(a)) { fp2_zero(r); return true; }
-  fp s, t;
-  if (fp_is_zero(a.c1)) {
-    fp_pow(s, a.c0, BLS_SQRT_EXP, 379);
-    fp_sqr(t, s);
-    if (fp_eq(t, a.c0)) { r.c0 = s; fp_zero(r.c1); return true; }
-    fp nx;
-    fp_neg(nx, a.c0);
-    fp_pow(s, nx, BLS_SQRT_EXP, 379);
-    fp_sqr(t, s);
-    if (fp_eq(t, nx)) { fp_zero(r.c0); r.c1 = s; return true; }
-    return false;
-  }
-  fp norm, n;
-  fp_sqr(norm, a.c0);
-  fp_sqr(t, a.c1);
-  fp_add(norm, norm, t);
-  fp_pow(n, norm, BLS_SQRT_EXP, 379);
-  fp_sqr(t, n);
-  if (!fp_eq(t, norm)) return false;
-  fp inv2;
-  fp_const(inv2, BLS_INV2);
-  for (int k = 0; k < 2; k++) {
-    fp half;
-    if (k == 0) fp_add(half, a.c0, n); else fp_sub(half, a.c0, n);
-    fp_mul(half, half, inv2);
-    fp_pow(s, half, BLS_SQRT_EXP, 379);
-    fp_sqr(t, s);
-    if (fp_eq(t, half) && !fp_is_zero(s)) {
-      fp2 root;
-      fp two_t;
-      fp_add(two_t, s, s);
-      fp_inv(two_t, two_t);
-      root.c0 = s;
-      fp_mul(root.c1, a.c1, two_t);
-      fp2 sq;
-      fp2_sqr(sq, root);
-      if (fp2_eq(sq, a)) { r = root; return true; }
-    }
-  }
-  return false;
 }
 
 // ---------------------------------------------------------------------------
@@ -488,25 +428,6 @@ DEVNI void g2_psi(jac<fp2>& r, const jac<fp2>& p) {
   fp2_conj(r.x, p.x); fp2_const(c, BLS_PSI_CX); fp2_mul(r.x, r.x, c);
   fp2_conj(r.y, p.y); fp2_const(c, BLS_PSI_CY); fp2_mul(r.y, r.y, c);
   fp2_conj(r.z, p.z);
-}
-
-// [h_eff]Q = [x^2 - x - 1]Q + [x - 1]psi(Q) + psi^2(2Q) (Budroni-Pintore;
-// curve.py g2_clear_cofactor, ladders in place of its wNAF)
-DEVNI void g2_clear_cofactor(jac<fp2>& r, const jac<fp2>& q) {
-  jac<fp2> a, nq, c1, c2, t;
-  pt_mul_x_abs(a, q);
-  pt_neg(a, a);                // [x]Q
-  pt_neg(nq, q);
-  pt_add(c1, a, nq);           // [x - 1]Q
-  pt_mul_x_abs(c2, c1);
-  pt_neg(c2, c2);              // [x^2 - x]Q
-  pt_add(c2, c2, nq);          // [x^2 - x - 1]Q
-  g2_psi(t, c1);
-  pt_add(c2, c2, t);
-  pt_double(t, q);
-  g2_psi(t, t);
-  g2_psi(t, t);
-  pt_add(r, c2, t);
 }
 
 // psi(Q) == [x]Q for an affine twist point (infinity counts as a member)

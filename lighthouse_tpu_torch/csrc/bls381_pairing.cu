@@ -6,8 +6,8 @@
 //   * :340 multi_pairing_check_device with :211 miller_loop_batch, :325
 //     _mask_and_reduce (infinity pairs contribute 1) and :305
 //     final_exp_cubed.
-// (:440 g2_clear_cofactor_device is a device function in
-// bls381_field.cuh, run inside the hash-to-G2 kernel, bls381_htc.cu.)
+// (:440 g2_clear_cofactor_device runs inside the hash-to-G2 kernel, as
+// team rounds: bls381_htc.cu team_clear_cofactor.)
 //
 // The Miller loop follows the host oracle (crypto/bls12_381/pairing.py):
 // the G2 point stays on the twist in homogeneous projective coordinates and
@@ -71,20 +71,8 @@
 //     4 products, a p- and a p^2-Frobenius): 7,182. For m = 33: 155,631.
 // chip_smoke.py turns these counts into a bound (BLS_FQ_MULS there).
 #include "bls381_field.cuh"
+#include "mont_cs.cuh"
 
-// a / 2 mod p: (a + p) / 2 for an odd a (a + p < 2^382: no carry out)
-DEV void fp_half(fp& r, const fp& a) {
-  uint32_t t[12];
-  const uint32_t odd = a.v[0] & 1u;
-  unsigned long long c = 0;
-  UNROLL for (int j = 0; j < 12; j++) {
-    c += (unsigned long long)a.v[j] + (odd ? BLS_P[j] : 0u);
-    t[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  UNROLL for (int j = 0; j < 11; j++) r.v[j] = (t[j] >> 1) | (t[j + 1] << 31);
-  r.v[11] = t[11] >> 1;
-}
 DEV void fp2_halve(fp2& r, const fp2& a) { fp_half(r.c0, a.c0); fp_half(r.c1, a.c1); }
 
 DEV void fp2_triple(fp2& r, const fp2& a) { fp2 t; fp2_add(t, a, a); fp2_add(r, t, a); }
@@ -321,52 +309,18 @@ DEVNI void team_cyc_pow(const Team& tm, fp12& r, const fp12& f, unsigned long lo
   }
 }
 
-// R^3 mod p: (aR)^-1 R^3 R^-1 = a^-1 R, a Montgomery product away
+// R^3 mod p, mont_inv_binary's last factor
 CONSTMEM uint32_t BLS_R3[12] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
                                 0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
 
-DEV bool limbs_ge(const fp& a, const fp& b) {
-  for (int j = 11; j >= 0; j--)
-    if (a.v[j] != b.v[j]) return a.v[j] > b.v[j];
-  return true;
-}
-DEV void limbs_sub(fp& r, const fp& a, const fp& b) {  // a >= b
-  long long br = 0;
-  UNROLL for (int j = 0; j < 12; j++) {
-    long long d = (long long)a.v[j] - (long long)b.v[j] + br;
-    r.v[j] = (uint32_t)d;
-    br = d >> 32;
-  }
-}
-DEV void limbs_shr1(fp& a) {
-  UNROLL for (int j = 0; j < 11; j++) a.v[j] = (a.v[j] >> 1) | (a.v[j + 1] << 31);
-  a.v[11] >>= 1;
-}
-DEV bool limbs_is_one(const fp& a) {
-  uint32_t acc = a.v[0] ^ 1u;
-  UNROLL for (int j = 1; j < 12; j++) acc |= a.v[j];
-  return acc == 0;
-}
-
 // a^-1 in Montgomery form by the binary extended Euclidean algorithm
-// (variable time: the pairing's inputs are public), 0 -> 0. Its loop
-// takes at most 2 * 381 short steps of shifts and subtractions, against
-// fp_inv's 381 squarings and ~190 products in one dependent chain.
-DEVNI void fp_inv_binary(fp& r, const fp& a) {
-  if (fp_is_zero(a)) { fp_zero(r); return; }
-  fp u = a, v, x1, x2;
-  fp_const(v, BLS_P);
-  fp_zero(x1); x1.v[0] = 1;
-  fp_zero(x2);
-  while (!limbs_is_one(u) && !limbs_is_one(v)) {
-    while (!(u.v[0] & 1u)) { limbs_shr1(u); fp_half(x1, x1); }
-    while (!(v.v[0] & 1u)) { limbs_shr1(v); fp_half(x2, x2); }
-    if (limbs_ge(u, v)) { limbs_sub(u, u, v); fp_sub(x1, x1, x2); }
-    else { limbs_sub(v, v, u); fp_sub(x2, x2, x1); }
-  }
+// (mont_cs.cuh; variable time: the pairing's inputs are public), 0 -> 0:
+// at most 2 * 381 short steps of shifts and subtractions, against fp_inv's
+// 381 squarings and ~190 products in one dependent chain.
+DEV void fp_inv_binary(fp& r, const fp& a) {
   fp r3;
   fp_const(r3, BLS_R3);
-  fp_mul(r, limbs_is_one(u) ? x1 : x2, r3);
+  mont_inv_binary<12>(r.v, a.v, BLS_P, BLS_NINV, r3.v);
 }
 
 struct InvMem { fp6 w, c; fp2 d; };

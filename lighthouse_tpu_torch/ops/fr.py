@@ -21,8 +21,10 @@ Dispatch is by the tensor's device: a CUDA tensor goes to the kernel
 (``*_plain``). A failed build or launch raises.
 
 The plain versions work on 16 16-bit limbs in int64 with the generic
-convolution and carry of ops/bls381.py, and invert per lane with Fermat's
-a^(r-2), as the kernels do.
+convolution and carry of ops/bls381.py. The barycentric one follows its
+kernel's method (a fraction and a plain sum per blob, one inverse per
+blob); the quotient's inverts per lane with Fermat's a^(r-2), as its
+kernel does.
 """
 
 from __future__ import annotations
@@ -39,14 +41,18 @@ R_MONT_FR = 1 << 256
 _W = 16  # 16-bit limbs of the plain versions
 _M16 = 0xFFFF
 _U32 = 0xFFFFFFFF
-# threads of a barycentric block (csrc/kzg_fr.cu BARY_THREADS)
+# threads of a barycentric block (csrc/kzg_fr.cu BARY_THREADS): the
+# kernel's scratch holds an (N, D, S0) triple per block, at most
+# ceil(n / 256) blocks a blob
 BARY_THREADS = 256
 # Lanes of the plain barycentric version per step on the card (bounds its
 # temporaries: a product of L lanes holds L * 16 * 32 int64).
 _PLAIN_LANES = 1 << 16
 
-# Kernel launches, counted where each kernel launches and nowhere else.
+# Kernel launches, counted where each kernel launches and nowhere else;
+# the barycentric ones also by the number of blobs a launch covers.
 COUNTS = {"barycentric_eval": 0, "quotient": 0}
+BARYCENTRIC_BY_BLOBS: dict[int, int] = {}
 
 LIB = CudaLibrary(
     "kzg_fr.cu",
@@ -60,6 +66,7 @@ LIB = CudaLibrary(
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    BARYCENTRIC_BY_BLOBS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +255,18 @@ def fr_inv(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _tree_sum16(v: torch.Tensor) -> torch.Tensor:
+def _frac_tree16(num: torch.Tensor, den: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sum over axis 1 of the fractions num / den ([m, n, 16] each, n a
+    power of two) as one fraction: a/b + c/d = (ad + cb) / bd."""
+    while num.shape[1] > 1:
+        h = num.shape[1] // 2
+        a, c, b, d = num[:, :h], num[:, h:], den[:, :h], den[:, h:]
+        num = fr_add16(fr_mul16(a, d), fr_mul16(c, b))
+        den = fr_mul16(b, d)
+    return num[:, 0], den[:, 0]
+
+
+def _sum_tree16(v: torch.Tensor) -> torch.Tensor:
     """Sum over axis 1 of [m, n, 16] (n a power of two)."""
     while v.shape[1] > 1:
         h = v.shape[1] // 2
@@ -256,27 +274,45 @@ def _tree_sum16(v: torch.Tensor) -> torch.Tensor:
     return v[:, 0]
 
 
+def _r_over_n16(n: int, dev: torch.device) -> torch.Tensor:
+    """The plain integer R / n mod r: a Montgomery product by it turns
+    (S / R) (z^n - 1) into y = S (z^n - 1) / n, canonical."""
+    return torch.tensor(_limbs16(R_MONT_FR * pow(n, -1, FR_MOD) % FR_MOD), dtype=torch.int64, device=dev)
+
+
 def barycentric_eval_plain(evals: torch.Tensor, roots: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
     """evals [m, n, 8] canonical words, roots [n, 8] Montgomery limbs, zs
-    [m, 8] canonical words (int32) -> ys [m, 8] canonical words."""
+    [m, 8] canonical words (int32) -> ys [m, 8] canonical words.
+
+    The kernel's method: S = sum p_i w_i / (z - w_i) = z S1 - S0 with
+    S1 = sum p_i / (z - w_i) kept as one fraction N/D per blob and
+    S0 = sum p_i (the canonical p_i read as Montgomery values, so both
+    carry a 1/R); one Fermat inverse of D per blob (0 -> 0: a z on the
+    domain gives y = 0), then (z N D^-1 - S0) (z^n - 1) times the plain
+    R / n."""
     m, n = evals.shape[0], evals.shape[1]
-    k = consts(evals.device)
+    dev = evals.device
+    k = consts(dev)
     w = to16(_u32(roots))
     z = words_to_mont16(zs)
     step = max(1, _PLAIN_LANES // n)
-    sums = []
+    nums, dens, sums = [], [], []
     for j in range(0, m, step):
-        p = words_to_mont16(evals[j : j + step])
-        d = fr_sub16(z[j : j + step, None], w)
-        t = fr_mul16(fr_mul16(p, w.expand_as(p)), fr_inv16(d))
-        sums.append(_tree_sum16(t))
-    s = torch.cat(sums) if sums else torch.zeros((0, _W), dtype=torch.int64, device=evals.device)
+        p = to16(_u32(evals[j : j + step]).flip(-1))
+        num, den = _frac_tree16(p, fr_sub16(z[j : j + step, None], w))
+        nums.append(num)
+        dens.append(den)
+        sums.append(_sum_tree16(p))
+    if not nums:
+        return torch.zeros((0, NLIMB_FR), dtype=torch.int32, device=dev)
+    num, den, s0 = torch.cat(nums), torch.cat(dens), torch.cat(sums)
     zn = z
     for _ in range(n.bit_length() - 1):
         zn = fr_mul16(zn, zn)
-    num = fr_sub16(zn, k["one"].expand_as(zn))
-    ninv = torch.tensor(_limbs16(pow(n, -1, FR_MOD) * R_MONT_FR % FR_MOD), dtype=torch.int64, device=evals.device)
-    return mont16_to_words(fr_mul16(fr_mul16(s, num), ninv.expand_as(s)))
+    s = fr_sub16(fr_mul16(fr_mul16(num, fr_inv16(den)), z), s0)
+    y = fr_mul16(s, fr_sub16(zn, k["one"].expand_as(zn)))
+    y = fr_mul16(y, _r_over_n16(n, dev).expand_as(y))
+    return _i32(to32(y).flip(-1))
 
 
 def quotient_plain(evals: torch.Tensor, roots: torch.Tensor, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -313,8 +349,8 @@ def barycentric_eval(evals: torch.Tensor, roots: torch.Tensor, zs: torch.Tensor)
 
     evals [m, n, 8] canonical words, roots [n, 8] Montgomery limbs (the
     bit-reversed domain), zs [m, 8] canonical words, all int32; n a power
-    of two; no z_j on the domain (the caller answers those). Returns ys
-    [m, 8] canonical words."""
+    of two. A z_j on the domain gives y_j = 0 (the caller answers those
+    on the host). Returns ys [m, 8] canonical words."""
     if evals.dim() != 3:
         raise ValueError(f"evals: expected [m, n, 8], got {list(evals.shape)}")
     m, n = evals.shape[0], evals.shape[1]
@@ -327,7 +363,7 @@ def barycentric_eval(evals: torch.Tensor, roots: torch.Tensor, zs: torch.Tensor)
         return barycentric_eval_plain(evals, roots, zs)
     dev = _cuda_ok(evals, roots, zs)
     nblk = -(-n // BARY_THREADS)
-    partial = torch.empty((max(m, 1), nblk, NLIMB_FR), dtype=torch.int32, device=dev)
+    partial = torch.empty((max(m, 1), 3 * nblk, NLIMB_FR), dtype=torch.int32, device=dev)
     ys = torch.empty((m, NLIMB_FR), dtype=torch.int32, device=dev)
     if m:
         LIB.launch(
@@ -335,6 +371,7 @@ def barycentric_eval(evals: torch.Tensor, roots: torch.Tensor, zs: torch.Tensor)
             ys.data_ptr(), m, n.bit_length() - 1, device=dev,
         )
         COUNTS["barycentric_eval"] += 1
+        BARYCENTRIC_BY_BLOBS[m] = BARYCENTRIC_BY_BLOBS.get(m, 0) + 1
     return ys
 
 

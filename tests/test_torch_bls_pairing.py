@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bls_g1_points, bls_g2_points, bls_twist_point_outside_subgroup
+from chip_smoke import (
+    bls_g1_points,
+    bls_g2_points,
+    bls_twist_point_outside_subgroup,
+    htc_edge_field_elements,
+    htc_gx1_is_square,
+)
 from lighthouse_tpu.crypto.bls12_381 import (
     FQ,
     FQ2,
@@ -25,7 +31,14 @@ from lighthouse_tpu.crypto.bls12_381 import (
 )
 from lighthouse_tpu.crypto.bls12_381 import fields as HF
 from lighthouse_tpu.crypto.bls12_381.fields import R
-from lighthouse_tpu.crypto.bls12_381.hash_to_curve import DST_G2_POP, hash_to_field_fq2
+from lighthouse_tpu.crypto.bls12_381.curve import from_affine
+from lighthouse_tpu.crypto.bls12_381.curve import pt_add as host_pt_add
+from lighthouse_tpu.crypto.bls12_381.hash_to_curve import (
+    DST_G2_POP,
+    _isogeny_to_e2,
+    hash_to_field_fq2,
+    map_to_curve_sswu,
+)
 from lighthouse_tpu_torch.crypto.bls12_381 import g2_affine_to_bytes
 from lighthouse_tpu_torch.ops import bls381 as K2
 from lighthouse_tpu_torch.ops import bls381_htc as K5
@@ -132,3 +145,50 @@ def test_hash_to_g2_matches_oracle():
     for row, m in zip(aff, msgs):
         v = K2.fq_from_limbs(row)
         assert g2_affine_to_bytes(((v[0], v[1]), (v[2], v[3]))) == g2_to_bytes(hash_to_g2(m))
+
+
+def _affine_pairs(jac16) -> list:
+    """Plain-version Jacobian Fq2 coordinates (16-bit limbs) -> affine
+    ((x0, x1), (y0, y1)) ints."""
+    aff = K2.to_affine("g2", K2.pack32(jac16, 2)).numpy()
+    return [((v[0], v[1]), (v[2], v[3])) for v in (K2.fq_from_limbs(row) for row in aff)]
+
+
+def test_hash_to_g2_edge_lanes_match_oracle():
+    """K5's plain version (inversion-free maps, the sum on E', one
+    projective isogeny) on field elements with u0 = u1 = 0 (RFC 9380's
+    tv2 = 0 exception), u whose g(x1) is not a square, and u1 = u0 (the
+    sum on E' doubles): each map equal
+    to the host oracle's map_to_curve_sswu, its isogeny image to
+    _isogeny_to_e2, and H(m) as affine bytes to the oracle's isogenies,
+    sum and cofactor clearing."""
+    u, lanes = htc_edge_field_elements(np.random.default_rng(26), 4)
+    vals = K2.fq_from_limbs(u)
+    us = [(vals[2 * i], vals[2 * i + 1]) for i in range(len(vals) // 2)]  # u0, u1 of message 0, then 1, ...
+    assert us[0] == us[1] == (0, 0) and not htc_gx1_is_square(us[2])
+    assert any(htc_gx1_is_square(x) for x in us) and lanes["non_square"]
+    flat = K2.to16(torch.from_numpy(u).reshape(-1, 2, 12))
+    maps = K5.map_to_curve_sswu16(flat)
+    want_maps = [map_to_curve_sswu(x) for x in us]
+    assert _affine_pairs(maps) == want_maps
+    assert _affine_pairs(K5.isogeny_to_e2_16(*maps)) == [_isogeny_to_e2(*p) for p in want_maps]
+    got = _affine_pairs(K5.hash_to_g2_16(K2.to16(torch.from_numpy(u))))
+    for i, (x, y) in enumerate(got):
+        q0, q1 = (from_affine(FQ2, _isogeny_to_e2(*want_maps[2 * i + j])) for j in range(2))
+        assert g2_affine_to_bytes((x, y)) == g2_to_bytes(g2_clear_cofactor(host_pt_add(FQ2, q0, q1)))
+
+
+@pytest.mark.slow
+def test_hash_to_g2_plain_matches_jax_device():
+    """K5's plain version against the JAX package's hash_to_g2_device as
+    affine bytes, on the edge lanes above (XLA's CPU compile of the JAX
+    kernel takes minutes, as in tests/test_device_pairing.py)."""
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.ops import bls381_htc as jax_htc
+    from lighthouse_tpu.ops.bls381 import g2_points_from_device
+
+    u, _ = htc_edge_field_elements(np.random.default_rng(27), 3)
+    want = g2_points_from_device(jax_htc.hash_to_g2_device(jnp.asarray(K2.limbs_to_jax(u))))
+    got = _affine_pairs(K5.hash_to_g2_16(K2.to16(torch.from_numpy(u))))
+    assert [g2_affine_to_bytes(g) for g in got] == [g2_to_bytes(w) for w in want]

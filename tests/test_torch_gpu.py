@@ -180,6 +180,19 @@ def test_bls_hash_to_g2_matches_plain(cuda):
     assert torch.equal(got, K5.hash_to_g2_plain(u))
 
 
+def test_bls_hash_to_g2_edge_lanes_match_plain(cuda):
+    """u0 = u1 = 0 (the tv2 = 0 exception), u whose g(x1) is not a square
+    and u1 = u0 (the E' doubling), among 32 messages: the kernel
+    limb-equal to its plain version."""
+    from chip_smoke import htc_edge_field_elements
+
+    u_np, lanes = htc_edge_field_elements(np.random.default_rng(31), 32)
+    assert lanes["non_square"]
+    u = torch.from_numpy(u_np).to(cuda)
+    got = _launched(K5.COUNTS, "hash_to_g2", lambda: K5.hash_to_g2(u))
+    assert torch.equal(got, K5.hash_to_g2_plain(u))
+
+
 @pytest.mark.parametrize("valid", [True, False])
 def test_bls_cuda_backend_verdict(cuda, valid):
     import random
@@ -261,6 +274,35 @@ def test_kzg_barycentric_matches_plain_and_host(cuda, m, n):
     want = sum(pi * w * pow(z - w, R - 2, R) for pi, w in zip(p, roots)) % R
     want = want * (pow(z, n, R) - 1) * pow(n, R - 2, R) % R
     assert K8.fr_from_words(got.cpu().numpy())[0] == want
+
+
+@pytest.mark.parametrize("m, on_domain", [(1, None), (6, 2)])
+def test_kzg_barycentric_one_blob_and_domain_point(cuda, m, on_domain):
+    """A proof's one blob, and six blobs with one z on the domain (y = 0
+    there, the others untouched): the kernel equal to its plain version and
+    to the host formula."""
+    from chip_smoke import fr_scalars, kzg_blobs
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    n = 4096
+    rng = np.random.default_rng(40 + m)
+    roots = _domain(n)
+    words = np.stack([K8.words_from_bytes(b, n) for b in kzg_blobs(rng, m, n)])
+    zs = fr_scalars(rng, m)
+    if on_domain is not None:
+        zs[on_domain] = roots[77]
+    args = [K8.as_i32(a).to(cuda) for a in (words, K8.mont_limbs(roots), K8.fr_to_words(zs))]
+    got = _launched(K8.COUNTS, "barycentric_eval", lambda: K8.barycentric_eval(*args))
+    assert torch.equal(got, K8.barycentric_eval_plain(*args))
+    ys = K8.fr_from_words(got.cpu().numpy())
+    for j in range(m):
+        if j == on_domain:
+            assert ys[j] == 0
+        elif j in (0, m - 1):
+            p = K8.fr_from_words(words[j])
+            want = sum(pi * w * pow(zs[j] - w, R - 2, R) for pi, w in zip(p, roots)) % R
+            assert ys[j] == want * (pow(zs[j], n, R) - 1) * pow(n, R - 2, R) % R
 
 
 @pytest.mark.parametrize("on_domain", [False, True])

@@ -107,6 +107,32 @@ def test_barycentric_and_quotient_match_jax_kernels():
         assert q == jq == formula
 
 
+@pytest.mark.parametrize("m, on_domain", [(1, None), (3, 1)])
+def test_barycentric_one_blob_and_domain_point_match_jax(m, on_domain):
+    """The barycentric plain version (one fraction and one inverse per
+    blob) at a proof's one blob, and in a batch where one blob's z is a
+    domain point beside off-domain blobs: y = 0 there, as the JAX kernel
+    gives (its Fermat inverse of 0 is 0 and z^n - 1 = 0), and the other
+    blobs equal to JAX and to the host's _evaluate_host."""
+    roots = _domain(N)
+    words = np.stack([K8.words_from_bytes(b, N) for b in _blobs(10 + m, m)])
+    evals = [K8.fr_from_words(w) for w in words]
+    zs = fr_scalars(np.random.default_rng(11 + m), m)
+    if on_domain is not None:
+        zs[on_domain] = roots[5]
+    got = K8.fr_from_words(
+        K8.barycentric_eval(K8.as_i32(words), K8.as_i32(K8.mont_limbs(roots)), K8.as_i32(K8.fr_to_words(zs))).numpy()
+    )
+    ev_j = jnp.asarray(np.stack([jax_fr.fr_to_device(e) for e in evals]))
+    want = jax_fr.fr_from_device(
+        jax_fr.barycentric_eval_batch(ev_j, jnp.asarray(jax_fr.fr_to_device(roots)), jnp.asarray(jax_fr.fr_to_device(zs)), 4)
+    )
+    assert got == want
+    host = JK.Kzg(JK.TrustedSetup.insecure_dev(N), device=False)
+    for j in range(m):
+        assert got[j] == (0 if j == on_domain else host._evaluate_host(evals[j], zs[j]))
+
+
 def test_plain_pippenger_matches_host_msms():
     """K9's plain versions (the table's steps, then the fixed-base MSM's)
     against the JAX package's host MSMs (crypto/kzg _g1_msm and
