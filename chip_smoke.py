@@ -16,7 +16,9 @@ each, any failure ends the run with a non-zero exit code:
    card and to hashlib; then each BLS kernel (G1/G2 ladders, segment sums
    and affine conversion, the G2 subgroup check, the multi-pairing,
    hash-to-G2 with edge lanes: u = 0, a non-square g(x1), u1 = u0) equal
-   to its plain version at the BLS main path's shapes;
+   to its plain version at the BLS main path's shapes, the G2 ladder on
+   affine points as the verifier stages them, on Jacobian ones and at the
+   edge scalars 0, 1, 2, 2^63 and 2^64 - 1;
    each with its time, the plain version's time and its bound; the
    epoch-sweep kernel equal to its plain version at 2^20 validators,
    in and out of the inactivity leak, with edge rows; and, on the mainnet
@@ -144,7 +146,9 @@ BLS_FQ_MULS = {
     # inversion; plus one fq_inv per batch
     "g1_affine_add": 6,
     "g2_dbl": 16,
+    "g2_mdbl": 13,  # 1M + 5S, an affine input
     "g2_add": 43,
+    "g2_madd": 29,  # 7M + 4S, an affine addend
     "fq_inv": 381,  # a^(p-2)
     "fq2_inv": 385,  # the norm (2), an Fq inverse, 2 products
     "subgroup_check": 1166,  # per point
@@ -991,9 +995,13 @@ def phase_kernel_checks(seed: int) -> dict:
     return out
 
 
-def _ladder_fq_muls(scalars, group: str) -> int:
-    d, a = BLS_FQ_MULS[group + "_dbl"], BLS_FQ_MULS[group + "_add"]
-    return sum(d * (k.bit_length() - 1) + a * (bin(k).count("1") - 1) for k in scalars if k)
+def _ladder_fq_muls(scalars, group: str, affine: bool = False) -> int:
+    """Least Fq products of [k]P for each k: (bits(k) - 1) doublings and
+    (popcount(k) - 1) additions; on an affine P (Z = 1) the first doubling
+    and every addition take the affine forms."""
+    d, a = BLS_FQ_MULS[group + "_dbl"], BLS_FQ_MULS[group + ("_madd" if affine else "_add")]
+    first = BLS_FQ_MULS[group + "_mdbl"] - d if affine else 0
+    return sum(d * (k.bit_length() - 1) + a * (bin(k).count("1") - 1) + (first if k > 1 else 0) for k in scalars if k)
 
 
 def _bound(muls: int, nbytes: int, field: str = "fq") -> dict:
@@ -1058,6 +1066,15 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     g2_row = g2_t[:lanes].reshape(1, lanes, 3, 2, 12).contiguous()
     g1_aff = [to_affine(FQ, q) for q in g1] + [to_affine(FQ, pt_neg(FQ, G1_GEN))]
     g2_aff = [to_affine(FQ2, q) for q in g2]
+    # the G2 ladder's points as the verifier stages them: affine, Z = 1
+    g2_z1 = torch.from_numpy(k_g.g2_to_limbs([(x, y, FQ2.one) for x, y in g2_aff[:lanes]])).to(dev)
+    # its edge scalars, on Jacobian points (Z != 1) in the first half of
+    # the lanes and on affine ones in the second
+    edge_k = [0, 1, 2, 2**63, 2**64 - 1]
+    edge_k = (edge_k + scalars[: lanes // 2 - len(edge_k)]) * 2
+    half = lanes // 2
+    g2_edge = torch.cat((g2_t[:half], g2_z1[half:])).contiguous()
+    edge_t = k_g.scalars_to_tensor(edge_k).to(dev)
     p_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g1_aff for v in a]).reshape(-1, 2, 12)).to(dev)
     q_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g2_aff for c in a for v in c]).reshape(-1, 2, 2, 12)).to(dev)
     no_inf = torch.zeros(lanes + 1, dtype=torch.bool, device=dev)
@@ -1074,11 +1091,25 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             _ladder_fq_muls(scalars, "g1"),
             2 * g1_t.numel() * W + lanes * 8,
         ),
+        # the main path's form (Z = 1: mixed additions), then Jacobian
+        # points (Z != 1) and the edge scalars
         "g2_scalar_mul": (
+            lambda: k_g.scalar_mul("g2", g2_z1, kt),
+            lambda: k_g.scalar_mul_plain("g2", g2_z1, kt),
+            _ladder_fq_muls(scalars, "g2", affine=True),
+            2 * g2_z1.numel() * W + lanes * 8,
+        ),
+        "g2_scalar_mul[z!=1]": (
             lambda: k_g.scalar_mul("g2", g2_t[:lanes].contiguous(), kt),
             lambda: k_g.scalar_mul_plain("g2", g2_t[:lanes].contiguous(), kt),
             _ladder_fq_muls(scalars, "g2"),
             2 * g2_t[:lanes].numel() * W + lanes * 8,
+        ),
+        "g2_scalar_mul[edge]": (
+            lambda: k_g.scalar_mul("g2", g2_edge, edge_t),
+            lambda: k_g.scalar_mul_plain("g2", g2_edge, edge_t),
+            _ladder_fq_muls(edge_k[:half], "g2") + _ladder_fq_muls(edge_k[half:], "g2", affine=True),
+            2 * g2_edge.numel() * W + lanes * 8,
         ),
         "g1_segment_sum": (
             lambda: k_g.segment_sum("g1", grid),
@@ -1167,7 +1198,10 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     sub = k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes])
     if not bool(sub.all()):
         raise AssertionError("g2_subgroup_check rejected subgroup points")
-    out["registers"] = {"bls381_htc.cu": _ptxas_of(k_htc.LIB, "hash_to_g2")}
+    out["registers"] = {
+        "bls381_htc.cu": _ptxas_of(k_htc.LIB, "hash_to_g2"),
+        "bls381_g.cu": _ptxas_of(k_g.LIB, "g2_ladder", "scalar_mul_kernel"),
+    }
     emit(out)
     return out
 
@@ -2467,6 +2501,7 @@ def phase_blob_main_path(kzg, blobs: list[bytes], signed_bytes: bytes, types, E,
         "launches": counts,
         "launches_per_step": launches,
         "barycentric_launches_by_blobs": bary_by_blobs,
+        "quotient_launches_by_step": {k: v["quotient"] for k, v in launches.items() if v["quotient"]},
         "max_memory_allocated_bytes": peak,
         "host_commitment_msm_s": host_msm_s,
         "split_b_da_verify": split_b,
@@ -2842,6 +2877,12 @@ def main(argv=None) -> int:
                         if name == "multi_pairing"
                         else {}
                     ),
+                    # the main path's affine points above; Jacobian ones here
+                    **(
+                        {"ms_z_not_1": bls_checks["kernels"]["g2_scalar_mul[z!=1]"]["ms"]}
+                        if name == "g2_scalar_mul"
+                        else {}
+                    ),
                 }
                 for name, (_, src, replaces) in BLS_KERNELS.items()
             ]
@@ -2882,6 +2923,11 @@ def main(argv=None) -> int:
                             "launches_by_blobs": blob_path["barycentric_launches_by_blobs"],
                         }
                         if name == "barycentric_eval"
+                        else {}
+                    ),
+                    **(
+                        {"launches_by_step": blob_path["quotient_launches_by_step"]}
+                        if name == "quotient"
                         else {}
                     ),
                 }

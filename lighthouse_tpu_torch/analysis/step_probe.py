@@ -1,0 +1,139 @@
+"""What the steps of the warp-team and batch-inversion kernels cost, on the card.
+
+Times, with `clock64` on one warp of one block, the steps that K2's G2
+ladder, K5's team rounds (csrc/g2_team.cuh) and K8's quotient
+(csrc/kzg_fr.cu) are made of: an Fq product (out of line, `fq_mul1`, and
+inlined, `fq_mulx`), an Fq addition (`fp_add`), a `__syncwarp`, a team
+round of three Fq2 products on plain operands, a team doubling, a general
+and a mixed team addition, an Fr product (`fr_mulx`) and one Fr binary
+inversion (`mont_inv_binary<8>`, on one thread, as the kernels run it).
+Each is the mean over a loop of dependent repetitions, in SM clock
+cycles, read from lane 0.
+
+    python3 -m lighthouse_tpu_torch.analysis.step_probe [--out DIR]
+
+Builds its probe from the repository's headers with nvcc into DIR
+(default lighthouse_tpu_torch/build/step_probe) and prints one JSON
+object: the card's nvidia-smi line and the cycles of each step over two
+runs. Needs nvcc and one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..ops import bls381 as K2
+from ..ops import fr as K8
+from ..ops.cuda_build import BUILD_DIR, CSRC, nvcc
+
+STEPS = ("fq_mul1", "fq_mulx", "fp_add", "syncwarp", "team_round3", "team_dbl", "team_add", "team_madd", "fr_mulx", "fr_inv_binary")
+
+_SOURCE = r"""
+#include "g2_team.cuh"
+#include "kzg_fr.cu"
+
+#define REPS 64
+#define TIME(slot, reps, body)                         \
+  {                                                    \
+    const long long t0 = clock64();                    \
+    for (int it = 0; it < reps; it++) { body; }        \
+    const long long t1 = clock64();                    \
+    if (lane == 0) clk[slot] = (t1 - t0) / (reps);     \
+  }
+
+// pts [2, 3, 2, 12]: a Jacobian and an affine G2 point; frv [16, 8] Fr
+// Montgomery limbs; clk [10] cycles; sink keeps the results live
+__global__ void __launch_bounds__(32)
+step_probe_kernel(const long long* pts, const uint32_t* frv, long long* sink, long long* clk) {
+  __shared__ fp opa[32], opb[32], prod[32];
+  __shared__ fp2 slots[G2_SLOTS];
+  __shared__ jac<fp2> pt[3];
+  const int lane = threadIdx.x;
+  const G2Team tm{lane, opa, opb, prod, slots};
+  if (lane < 6) fp2_ld(lane % 3 == 0 ? pt[lane / 3].x : lane % 3 == 1 ? pt[lane / 3].y : pt[lane / 3].z,
+                       pts + lane * 24);
+  tm.sync();
+  fp a = pt[0].x.c0, b = pt[0].y.c0, c = pt[0].x.c1;
+  TIME(0, REPS, fq_mul1(a, a, b));
+  TIME(1, REPS, fq_mulx(a, a, b));
+  TIME(2, REPS, fp_add(c, c, b));
+  TIME(3, REPS, tm.sync());
+  TIME(4, REPS, team_round(tm, 3, 0, [&](int q, int i, int j, fp& x, fp& y) {
+         x = cpt(pt[0].x, i);
+         y = cpt(pt[0].y, j);
+       }));
+  TIME(5, REPS, team_dbl(tm, pt[2], pt[0], false));
+  TIME(6, REPS, team_add(tm, pt[2], pt[0], pt[1], false));
+  TIME(7, REPS, team_madd(tm, pt[2], pt[0], pt[1]));
+  fr x, y, r3;
+  fr_set(x, frv + 8 * (lane % 16));
+  fr_set(y, frv + 8 * ((lane + 1) % 16));
+  fr_set(r3, FR_R3);
+  TIME(8, REPS, fr_mulx(x, x, y));
+  fr inv = x;
+  // the inversion as the kernels run it: one thread of the warp
+  TIME(9, 16, if (lane == 0) {
+    fr_set(inv, frv + 8 * it);
+    mont_inv_binary<8>(inv.v, inv.v, FR_MOD, FR_NINV, r3.v);
+  });
+  if (lane == 0) sink[0] = (long long)a.v[0] + c.v[0] + x.v[0] + inv.v[0] + pt[2].x.c0.v[0];
+}
+
+extern "C" int step_probe(const long long* pts, const uint32_t* frv, long long* sink, long long* clk) {
+  step_probe_kernel<<<1, 32>>>(pts, frv, sink, clk);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build(out: Path) -> Path:
+    out.mkdir(parents=True, exist_ok=True)
+    src, so = out / "step_probe.cu", out / "step_probe.so"
+    src.write_text(_SOURCE)
+    cmd = [
+        nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", str(so), str(src),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    return so
+
+
+def main(argv=None) -> int:
+    from ..crypto.bls12_381 import FQ2, G2_GEN, R, pt_add, pt_mul, to_affine
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path, default=BUILD_DIR / "step_probe")
+    args = ap.parse_args(argv)
+    lib = ctypes.CDLL(str(build(args.out)))
+    lib.step_probe.argtypes = [ctypes.c_void_p] * 4
+    rng = np.random.default_rng(1)
+    ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(18)]
+    jac_pt = pt_add(FQ2, pt_mul(FQ2, G2_GEN, ks[0]), G2_GEN)  # Z != 1
+    pts = torch.from_numpy(K2.g2_to_limbs([jac_pt, (*to_affine(FQ2, pt_mul(FQ2, G2_GEN, ks[1])), FQ2.one)])).cuda()
+    frv = K8.as_i32(K8.mont_limbs(ks[2:])).cuda()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    sink = torch.zeros(1, dtype=torch.int64, device="cuda")
+    runs = []
+    for _ in range(2):
+        clk = torch.zeros(len(STEPS), dtype=torch.int64, device="cuda")
+        if lib.step_probe(pts.data_ptr(), frv.data_ptr(), sink.data_ptr(), clk.data_ptr()):
+            raise RuntimeError("step_probe launch failed")
+        torch.cuda.synchronize()
+        runs.append(dict(zip(STEPS, clk.tolist())))
+    print(json.dumps({"nvidia_smi": smi, "cycles": runs}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,9 +13,20 @@
 //     them is g1_segment_sum).
 //
 // Design: one thread per lane; a lane's points live in registers and local
-// memory. The ladders branch on the scalar's bits (they are public: the
+// memory. The G1 ladders branch on the scalar's bits (they are public: the
 // verifier's random scalars), running all 64 bits left to right from the
-// canonical infinity. A segment sum is one block per segment, a tree over
+// canonical infinity. The G2 ladder runs a warp per lane instead (the team
+// code of g2_team.cuh, K5's): 32 lanes are 32 warps on 32 SMs, a round
+// puts up to eight Fq2 products on the warp's lanes, and the bit branch is
+// the team's own, so a warp pays an addition only on its own scalar's set
+// bits (a warp of 32 one-thread ladders diverged on nearly every bit). It
+// starts from P at the scalar's top bit, which is what the canonical
+// infinity's doublings and first addition give, so its output equals the
+// one-thread ladder's (pt_mul_u64) limb for limb: (bits(k) - 1) team
+// doublings of 3 rounds and (popcount(k) - 1) additions of 6 rounds, or
+// of 5 for an affine P (Z = 1, as the verifier's decompressed signatures
+// come: team_madd), about 380 rounds in one chain for a 64-bit draw.
+// A segment sum is one block per segment, a tree over
 // the (power-of-two) padded axis in a global scratch buffer, one level per
 // __syncthreads(); the tree pairs (0,1), (2,3), ... and then their sums, as
 // the plain version does, so both give the same Jacobian coordinates.
@@ -29,7 +40,9 @@
 // 16 and 11; in Fq2 16, 13, 43 and 29.
 //   * 64-bit ladder with scalar k on a Jacobian point: (bits(k) - 1)
 //     doublings and (popcount(k) - 1) additions; for a 64-bit draw about 63
-//     and 31, so G1 63*7 + 31*16 = 937 and G2 63*16 + 31*43 = 2,341.
+//     and 31, so G1 63*7 + 31*16 = 937 and G2 63*16 + 31*43 = 2,341. On
+//     an affine G2 point the first doubling is 13 and every addition a
+//     mixed one, 29: 13 + 62*16 + 31*29 = 1,904.
 //   * segment sum over k affine points (the pubkeys): k - 1 mixed
 //     additions (11); over k Jacobian points (the G2 sum): k - 1 additions
 //     (43).
@@ -50,7 +63,7 @@
 // multiplies per Montgomery multiplication over 64 multiplies per clock
 // per SM (CUDA C++ Programming Guide, compute capability 9.0), 132 SMs,
 // 1.98 GHz.
-#include "bls381_field.cuh"
+#include "g2_team.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -67,6 +80,34 @@ scalar_mul_kernel(const long long* pts, const long long* k, long long* out, long
   pt_ld(p, pts + i * p3);
   pt_mul_u64(r, p, (unsigned long long)k[i]);
   pt_st(out + i * p3, r);
+}
+
+// a warp per lane: pts [n, 3, 2, 12] Jacobian G2, k [n] -> out [n, 3, 2, 12]
+__global__ void __launch_bounds__(G2_TEAM)
+g2_ladder_kernel(const long long* pts, const long long* k, long long* out) {
+  __shared__ fp opa[G2_TEAM], opb[G2_TEAM], prod[G2_TEAM];
+  __shared__ fp2 slots[G2_SLOTS];
+  __shared__ jac<fp2> pt[2];
+  const int lane = threadIdx.x;
+  const long long i = blockIdx.x;
+  const G2Team tm{lane, opa, opb, prod, slots};
+  jac<fp2>&p = pt[0], &acc = pt[1];
+  if (lane < 3) fp2_ld(lane == 0 ? p.x : lane == 1 ? p.y : p.z, pts + i * 72 + lane * 24);
+  tm.sync();
+  const unsigned long long s = (unsigned long long)k[i];
+  int top = 63;
+  while (top >= 0 && !((s >> top) & 1)) top--;
+  if (top < 0) team_inf(tm, acc); else team_copy(tm, acc, p);
+  fp2 one;
+  fp2_one(one);
+  const bool affine = fp2_eq(p.z, one);
+  for (int b = top - 1; b >= 0; b--) {
+    team_dbl(tm, acc, acc, false);
+    if ((s >> b) & 1) {
+      if (affine) team_madd(tm, acc, acc, p); else team_add(tm, acc, acc, p, false);
+    }
+  }
+  if (lane < 3) fp2_st(out + i * 72 + lane * 24, lane == 0 ? acc.x : lane == 1 ? acc.y : acc.z);
 }
 
 // pts [n, 3, 12] G1; words [n, 8] int32, canonical 256-bit scalars as
@@ -155,7 +196,7 @@ int bls_g1_scalar_mul(const long long* pts, const long long* k, long long* out, 
 }
 
 int bls_g2_scalar_mul(const long long* pts, const long long* k, long long* out, long long n, void* stream) {
-  scalar_mul_kernel<fp2><<<grid_for(n), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, k, out, n);
+  g2_ladder_kernel<<<(unsigned)n, G2_TEAM, 0, (cudaStream_t)stream>>>(pts, k, out);
   return (int)cudaGetLastError();
 }
 

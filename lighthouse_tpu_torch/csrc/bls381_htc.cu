@@ -24,10 +24,11 @@
 //      it. The affine y comes out directly; the point goes on as the
 //      Jacobian (x_num x_den, y x_den^3, x_den). The powers run 4-bit
 //      fixed windows (376 squarings and at most 94 products each).
-//   2. The warp then works as a team (K4's model, bls381_pairing.cu): the
-//      state lives in shared memory and each round puts up to eight Fq2
-//      products on its lanes, four Fq products each (schoolbook: no sums
-//      before the products), one a lane. A lane writes its two Fq
+//   2. The warp then works as a team (K4's model; the team code is
+//      g2_team.cuh, shared with K2's G2 ladder): the state lives in
+//      shared memory and each round puts up to eight Fq2 products on its
+//      lanes, four Fq products each (schoolbook: no sums before the
+//      products), one a lane. A lane writes its two Fq
 //      operands into shared memory (a coordinate picked by reference, or
 //      of a sum), multiplies, and two lanes an Fq2 form its coordinates
 //      with one subtraction each, so a round costs about one Fq product
@@ -65,8 +66,7 @@
 //     (63 doublings, 16, and 5 additions, 43: 1,223 each), a doubling, 5
 //     additions, psi (5) and psi^2 (2): 2,684.
 //   4,403 per message (BLS_FQ_MULS in chip_smoke.py).
-#include "bls381_field.cuh"
-#include "mont_cs.cuh"
+#include "g2_team.cuh"
 
 // sqrt(-5) (Montgomery): a root of norm(Z) N(W) = 5 N(W) from n^2 = -N(W)
 CONSTMEM uint32_t BLS_SQRT_M5[12] = {0x7f49f0bau, 0xcd94f740u, 0xa6c4f72du, 0xe4f81e0fu, 0x4799eedbu, 0x30e77d85u,
@@ -76,14 +76,8 @@ CONSTMEM uint32_t BLS_SQRT_EXP_M1[12] = {0xffffeaaau, 0xee7fbfffu, 0xac54ffffu, 
                                          0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
 
 // ---------------------------------------------------------------------------
-// Fq and Fq2 on the column-sum product
+// Fq2 on the column-sum product (Fq's, fq_mulx and fq_mul1: g2_team.cuh)
 // ---------------------------------------------------------------------------
-
-DEV void fq_mulx(fp& r, const fp& a, const fp& b) { mont_mul_cs<12>(r.v, a.v, b.v, BLS_P, BLS_NINV); }
-
-// one out-of-line copy for the products that stand alone (a team lane's,
-// the map's single ones): the inlined copies stay where they interleave
-DEVNI void fq_mul1(fp& r, const fp& a, const fp& b) { fq_mulx(r, a, b); }
 
 // Karatsuba: three independent products, interleaved by the compiler
 DEVNI void fq2_mulx(fp2& r, const fp2& a, const fp2& b) {
@@ -233,237 +227,11 @@ DEV void map_to_curve_sswu_jac(jac<fp2>& q, const fp2& u) {
 }
 
 // ---------------------------------------------------------------------------
-// 2. Team rounds on a warp: points and named values in shared memory
+// 2. Team rounds on a warp (g2_team.cuh): the cofactor clearing's steps
 // ---------------------------------------------------------------------------
 
-#define HTC_TEAM 32
-#define HTC_SLOTS 16
-
-struct HTeam {
-  int lane;
-  fp* opa;   // [32]: a round's operands, one pair a lane
-  fp* opb;
-  fp* prod;  // [32]: a round's Fq products, one a lane
-  fp2* v;    // [HTC_SLOTS]: the rounds' results, by slot
-#ifdef __CUDACC__
-  __device__ void sync() const { __syncwarp(); }
-#else
-  void sync() const {}  // host builds run one lane: nothing to wait for
-#endif
-};
-
-// coordinate i of an Fq2
-DEV const fp& cpt(const fp2& a, int i) { return i ? a.c1 : a.c0; }
-
-// One round: v[base + q] = x_q * y_q for q < n <= 8, each Fq2 product as
-// four Fq products x_i y_j on lanes 4q + 2i + j (schoolbook: no sums
-// before the products). sel(q, i, j, a, b) writes the lane's operands x_i
-// and y_j into shared memory (a reference picked, or a coordinate of a
-// sum), the product reads them there. The x_1 y_0 lane negates its
-// product, so both coordinates come out of one subtraction on two lanes:
-// x0 y0 - x1 y1 and x0 y1 - (-x1 y0).
-template <class Sel>
-DEV void team_round(const HTeam& tm, int n, int base, Sel sel) {
-  const int k = tm.lane;
-  if (k < 4 * n) {
-    sel(k >> 2, (k >> 1) & 1, k & 1, tm.opa[k], tm.opb[k]);
-    fq_mul1(tm.prod[k], tm.opa[k], tm.opb[k]);
-    if ((k & 3) == 2) fp_neg(tm.prod[k], tm.prod[k]);
-  }
-  tm.sync();
-  if (k < 2 * n) {
-    const int q = k >> 1, c = k & 1;
-    fp_sub(c ? tm.v[base + q].c1 : tm.v[base + q].c0, tm.prod[4 * q + c], tm.prod[4 * q + 3 - c]);
-  }
-  tm.sync();
-}
-
-DEV void team_copy(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
-  if (tm.lane == 0) r.x = p.x;
-  if (tm.lane == 1) r.y = p.y;
-  if (tm.lane == 2) r.z = p.z;
-  tm.sync();
-}
-
-DEV void team_neg(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
-  if (tm.lane == 0) r.x = p.x;
-  if (tm.lane == 1) fp2_neg(r.y, p.y);
-  if (tm.lane == 2) r.z = p.z;
-  tm.sync();
-}
-
-DEV void team_inf(const HTeam& tm, jac<fp2>& r) {
-  if (tm.lane == 0) fp2_one(r.x);
-  if (tm.lane == 1) fp2_one(r.y);
-  if (tm.lane == 2) fp2_zero(r.z);
-  tm.sync();
-}
-
-// 2P (curve.py pt_double; r may be p): 3 rounds. With a_coef, the
-// general-a form on E' (E = 3 X^2 + a Z^4): 5 rounds.
-DEVNI void team_dbl(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p, bool a_coef) {
-  fp2* v = tm.v;
-  // slots: A 0, B 1, YZ 2, ZZ 3, C 4, T 5, F or Z4 6, aZ4 7, F 8, Y3 9
-  team_round(tm, a_coef ? 4 : 3, 0, [&](int q, int i, int j, fp& a, fp& b) {
-    const fp2& x = q == 0 ? p.x : q == 3 ? p.z : p.y;
-    const fp2& y = q == 0 ? p.x : q == 1 ? p.y : p.z;
-    a = cpt(x, i);
-    b = cpt(y, j);
-  });
-  auto e_of = [&](fp& e, int i) {  // coordinate i of 3A (+ a Z^4)
-    fp_add(e, cpt(v[0], i), cpt(v[0], i));
-    fp_add(e, e, cpt(v[0], i));
-    if (a_coef) fp_add(e, e, cpt(v[7], i));
-  };
-  // B^2, (X + B)^2, and E^2 (a = 0) or Z^4
-  team_round(tm, 3, 4, [&](int q, int i, int j, fp& a, fp& b) {
-    if (q == 1) {
-      fp_add(a, cpt(p.x, i), cpt(v[1], i));
-      fp_add(b, cpt(p.x, j), cpt(v[1], j));
-    } else if (q == 2 && !a_coef) {
-      e_of(a, i);
-      e_of(b, j);
-    } else {
-      const fp2& x = q == 0 ? v[1] : v[3];
-      a = cpt(x, i);
-      b = cpt(x, j);
-    }
-  });
-  const int f = a_coef ? 8 : 6;
-  if (a_coef) {
-    team_round(tm, 1, 7, [&](int, int i, int j, fp& a, fp& b) {
-      fp_const(a, BLS_SSWU_A[i]);
-      b = cpt(v[6], j);
-    });
-    team_round(tm, 1, 8, [&](int, int i, int j, fp& a, fp& b) {
-      e_of(a, i);
-      e_of(b, j);
-    });
-  }
-  // coordinate i of D = 2 ((X + B)^2 - A - C) and of X3 = F - 2D
-  auto d_x3 = [&](fp& d, fp& x3, int i) {
-    fp_sub(d, cpt(v[5], i), cpt(v[0], i));
-    fp_sub(d, d, cpt(v[4], i));
-    fp_add(d, d, d);
-    fp_add(x3, d, d);
-    fp_sub(x3, cpt(v[f], i), x3);
-  };
-  team_round(tm, 1, 9, [&](int, int i, int j, fp& a, fp& b) {
-    fp d, x3;
-    e_of(a, i);
-    d_x3(d, x3, j);
-    fp_sub(b, d, x3);
-  });
-  // lanes 0-5: coordinate k % 2 of X3, Y3 = E (D - X3) - 8C, Z3 = 2 YZ
-  const int k = tm.lane;
-  if (k < 6) {
-    const int i = k & 1;
-    fp o, d, c8;
-    if (k < 2) {
-      d_x3(d, o, i);
-      (i ? r.x.c1 : r.x.c0) = o;
-    } else if (k < 4) {
-      fp_add(c8, cpt(v[4], i), cpt(v[4], i));
-      fp_add(c8, c8, c8);
-      fp_add(c8, c8, c8);
-      fp_sub(i ? r.y.c1 : r.y.c0, cpt(v[9], i), c8);
-    } else {
-      fp_add(i ? r.z.c1 : r.z.c0, cpt(v[2], i), cpt(v[2], i));
-    }
-  }
-  tm.sync();
-}
-
-// P + Q with every case of curve.py pt_add (r may be p or q): an infinity
-// operand passes the other through, P == Q doubles (general a on E'),
-// P == -Q gives the canonical infinity. The branches are the team's own
-// (every lane reads the same shared values).
-DEVNI void team_add(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p, const jac<fp2>& q, bool a_coef) {
-  if (fp2_is_zero(p.z)) { team_copy(tm, r, q); return; }
-  if (fp2_is_zero(q.z)) { team_copy(tm, r, p); return; }
-  fp2* v = tm.v;
-  // slots: Z1Z1 0, Z2Z2 1, U1 2, U2 3, T1 4, T2 5, S1 6, S2 7
-  team_round(tm, 2, 0, [&](int k, int i, int j, fp& a, fp& b) {
-    const fp2& z = k == 0 ? p.z : q.z;
-    a = cpt(z, i);
-    b = cpt(z, j);
-  });
-  team_round(tm, 4, 2, [&](int k, int i, int j, fp& a, fp& b) {
-    const fp2& x = k == 0 ? p.x : k == 1 ? q.x : k == 2 ? v[1] : v[0];
-    const fp2& y = k == 0 ? v[1] : k == 1 ? v[0] : k == 2 ? q.z : p.z;
-    a = cpt(x, i);
-    b = cpt(y, j);
-  });
-  team_round(tm, 2, 6, [&](int k, int i, int j, fp& a, fp& b) {
-    a = cpt(k == 0 ? p.y : q.y, i);
-    b = cpt(k == 0 ? v[4] : v[5], j);
-  });
-  if (fp2_eq(v[2], v[3])) {
-    if (fp2_eq(v[6], v[7])) team_dbl(tm, r, p, a_coef); else team_inf(tm, r);
-    return;
-  }
-  // coordinate i of H = U2 - U1 and rr = 2 (S2 - S1); slots: I 8, rr^2 9,
-  // Z1Z2 10, J 11, V 12, Z1Z2H 13, rr (V - X3) 14, S1 J 15
-  auto h_of = [&](fp& h, int i) { fp_sub(h, cpt(v[3], i), cpt(v[2], i)); };
-  auto rr_of = [&](fp& rr, int i) {
-    fp_sub(rr, cpt(v[7], i), cpt(v[6], i));
-    fp_add(rr, rr, rr);
-  };
-  team_round(tm, 3, 8, [&](int k, int i, int j, fp& a, fp& b) {
-    if (k == 0) {
-      h_of(a, i);
-      fp_add(a, a, a);
-      h_of(b, j);
-      fp_add(b, b, b);
-    } else if (k == 1) {
-      rr_of(a, i);
-      rr_of(b, j);
-    } else {
-      a = cpt(p.z, i);
-      b = cpt(q.z, j);
-    }
-  });
-  team_round(tm, 3, 11, [&](int k, int i, int j, fp& a, fp& b) {
-    if (k == 2) { a = cpt(v[10], i); h_of(b, j); }
-    else { if (k == 0) h_of(a, i); else a = cpt(v[2], i); b = cpt(v[8], j); }
-  });
-  auto x3_of = [&](fp& x3, int i) {  // coordinate i of rr^2 - J - 2V
-    fp t;
-    fp_sub(x3, cpt(v[9], i), cpt(v[11], i));
-    fp_add(t, cpt(v[12], i), cpt(v[12], i));
-    fp_sub(x3, x3, t);
-  };
-  team_round(tm, 2, 14, [&](int k, int i, int j, fp& a, fp& b) {
-    if (k == 0) {
-      fp x3;
-      rr_of(a, i);
-      x3_of(x3, j);
-      fp_sub(b, cpt(v[12], j), x3);
-    } else {
-      a = cpt(v[6], i);
-      b = cpt(v[11], j);
-    }
-  });
-  // lanes 0-5: coordinate k % 2 of X3, Y3 = rr (V - X3) - 2 S1 J, Z3 = 2 Z1Z2H
-  const int k = tm.lane;
-  if (k < 6) {
-    const int i = k & 1;
-    fp o;
-    if (k < 2) {
-      x3_of(o, i);
-      (i ? r.x.c1 : r.x.c0) = o;
-    } else if (k < 4) {
-      fp_add(o, cpt(v[15], i), cpt(v[15], i));
-      fp_sub(i ? r.y.c1 : r.y.c0, cpt(v[14], i), o);
-    } else {
-      fp_add(i ? r.z.c1 : r.z.c0, cpt(v[13], i), cpt(v[13], i));
-    }
-  }
-  tm.sync();
-}
-
 // psi: (cx conj(X), cy conj(Y), conj(Z)); r may be p
-DEVNI void team_psi(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
+DEVNI void team_psi(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p) {
   team_round(tm, 2, 0, [&](int k, int i, int j, fp& a, fp& b) {
     const fp2& x = k == 0 ? p.x : p.y;
     if (i) fp_neg(a, x.c1); else a = x.c0;
@@ -476,7 +244,7 @@ DEVNI void team_psi(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
 }
 
 // [|x|]P from P over the bits of |x| below its top bit (r != p)
-DEVNI void team_mul_x_abs(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
+DEVNI void team_mul_x_abs(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p) {
   team_copy(tm, r, p);
   for (int i = 62; i >= 0; i--) {
     team_dbl(tm, r, r, false);
@@ -485,7 +253,7 @@ DEVNI void team_mul_x_abs(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
 }
 
 // the 3-isogeny E' -> E2 in projective form (header, step 2); r != p
-DEVNI void team_isogeny(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
+DEVNI void team_isogeny(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p) {
   fp2* v = tm.v;
   // slots: ZZ 0, Z4 1, x0 ZZ 2, Z6 3, D^2 4, D Z4 5, D Z 6, X D^2 7,
   // T D Z4 8, U Z6 9, D^3 10, Y' inner 11
@@ -531,7 +299,7 @@ DEVNI void team_isogeny(const HTeam& tm, jac<fp2>& r, const jac<fp2>& p) {
 // [h_eff]Q = [x^2 - x - 1]Q + [x - 1]psi(Q) + psi^2(2Q) (Budroni-Pintore;
 // curve.py g2_clear_cofactor with |x|-ladders in place of its wNAF, the
 // steps of the plain g2_clear_cofactor16); s: 5 shared points of scratch
-DEVNI void team_clear_cofactor(const HTeam& tm, jac<fp2>& r, const jac<fp2>& q, jac<fp2>* s) {
+DEVNI void team_clear_cofactor(const G2Team& tm, jac<fp2>& r, const jac<fp2>& q, jac<fp2>* s) {
   jac<fp2>&a = s[0], &nq = s[1], &c1 = s[2], &c2 = s[3], &t = s[4];
   team_mul_x_abs(tm, a, q);
   team_neg(tm, a, a);               // [x]Q
@@ -552,14 +320,14 @@ DEVNI void team_clear_cofactor(const HTeam& tm, jac<fp2>& r, const jac<fp2>& q, 
 #include <cuda_runtime.h>
 
 // a warp per message: u [m, 2, 2, 12] -> out [m, 3, 2, 12]
-__global__ void __launch_bounds__(HTC_TEAM)
+__global__ void __launch_bounds__(G2_TEAM)
 hash_to_g2_kernel(const long long* u, long long* out) {
-  __shared__ fp opa[HTC_TEAM], opb[HTC_TEAM], prod[HTC_TEAM];
-  __shared__ fp2 slots[HTC_SLOTS];
+  __shared__ fp opa[G2_TEAM], opb[G2_TEAM], prod[G2_TEAM];
+  __shared__ fp2 slots[G2_SLOTS];
   __shared__ jac<fp2> pts[8];
   const int lane = threadIdx.x;
   const long long i = blockIdx.x;
-  const HTeam tm{lane, opa, opb, prod, slots};
+  const G2Team tm{lane, opa, opb, prod, slots};
   if (lane < 2) {
     fp2 uu;
     fp2_ld(uu, u + i * 48 + lane * 24);
@@ -577,7 +345,7 @@ hash_to_g2_kernel(const long long* u, long long* out) {
 }
 
 extern "C" int bls_hash_to_g2(const long long* u, long long* out, long long m, void* stream) {
-  hash_to_g2_kernel<<<(unsigned)m, HTC_TEAM, 0, (cudaStream_t)stream>>>(u, out);
+  hash_to_g2_kernel<<<(unsigned)m, G2_TEAM, 0, (cudaStream_t)stream>>>(u, out);
   return (int)cudaGetLastError();
 }
 

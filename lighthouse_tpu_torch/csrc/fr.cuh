@@ -1,24 +1,26 @@
-// BLS12-381 scalar field Fr for the port's KZG kernels (csrc/kzg_fr.cu).
+// BLS12-381 scalar field Fr for the port's KZG kernels (csrc/kzg_fr.cu):
+// the layout, loads and stores, additions and subtractions.
 //
 // Replaces the field layer of the JAX package's lighthouse_tpu/ops/fr.py
-// (K8): fr_mul (:78), fr_add (:89), fr_sub (:94) and fr_inv (:102, Fermat).
-// Like K3 it has no launch of its own: it is device code compiled into the
-// kernels that use it. The plain PyTorch versions are in ops/fr.py.
+// (K8): fr_add (:89) and fr_sub (:94) here; fr_mul (:78) and fr_inv (:102,
+// Fermat) are mont_mul_cs<8> and mont_inv_binary<8> (csrc/mont_cs.cuh, a
+// column-sum Montgomery product and a binary extended Euclid). Like K3 it
+// has no launch of its own: it is device code compiled into the kernels
+// that use it. The plain PyTorch versions are in ops/fr.py.
 //
 // Representation. Fr is 8 little-endian 32-bit limbs in Montgomery form
 // with R = 2^256, the JAX package's R (JAX holds a residue as 32 8-bit
 // limbs in int32; the integer is the same). Every value is fully reduced
 // into [0, r). Since r < 2^255, the sum of two reduced values fits in 8
-// limbs, and the CIOS product before its last subtraction is below 2r.
-// At the kernels' edges values are canonical 32-byte big-endian integers,
-// as the blobs carry them, held as 8 32-bit words with the most
+// limbs. At the kernels' edges values are canonical 32-byte big-endian
+// integers, as the blobs carry them, held as 8 32-bit words with the most
 // significant word first (fr_ld_be / fr_st_be).
 //
-// What bounds it: 32-bit multiply-adds. A Montgomery multiplication is
-// 2*8*8 limb products (a*b and m*r), each a low and a high half, and 8 low
-// halves m = t0 * n': 264 32-bit multiplies. An inverse a^(r-2) is 254
-// squarings and 163 multiplications here; at the floor of any addition
-// chain it is 255 products.
+// What bounds the kernels: 32-bit multiply-adds. A Montgomery
+// multiplication is 2*8*8 limb products (a*b and m*r), each a low and a
+// high half, and 8 low halves m = t0 * n': 264 32-bit multiplies. An
+// inverse is counted at the floor of any addition chain for a^(r-2), 255
+// products.
 //
 // Plain C++ for one thread outside nvcc (no __CUDACC__), as
 // bls381_field.cuh.
@@ -28,29 +30,31 @@
 #ifndef DEV
 #ifdef __CUDACC__
 #define DEV __device__ __forceinline__
-#define DEVNI __device__ __noinline__
 #define CONSTMEM __constant__ const
 #define UNROLL _Pragma("unroll")
 #else
 #define DEV static inline
-#define DEVNI static
 #define CONSTMEM static const
 #define UNROLL
 #endif
 #endif
 
-// r, -r^-1 mod 2^32, R mod r, R^2 mod r, and the exponent r - 2 (plain)
+// r, -r^-1 mod 2^32, R mod r and R^2 mod r
 CONSTMEM uint32_t FR_MOD[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 #define FR_NINV 0xffffffffu
 CONSTMEM uint32_t FR_ONE[8] = {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau, 0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
 CONSTMEM uint32_t FR_R2[8] = {0xf3f29c6du, 0xc999e990u, 0x87925c23u, 0x2b6cedcbu, 0x7254398fu, 0x05d31496u, 0x9f59ff11u, 0x0748d9d9u};
-CONSTMEM uint32_t FR_MINUS_2[8] = {0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 
 struct fr { uint32_t v[8]; };
 
 DEV void fr_zero(fr& a) { UNROLL for (int j = 0; j < 8; j++) a.v[j] = 0; }
 DEV void fr_set(fr& a, const uint32_t* c) { UNROLL for (int j = 0; j < 8; j++) a.v[j] = c[j]; }
 DEV void fr_one(fr& a) { fr_set(a, FR_ONE); }
+DEV bool fr_is_zero(const fr& a) {
+  uint32_t acc = 0;
+  UNROLL for (int j = 0; j < 8; j++) acc |= a.v[j];
+  return acc == 0;
+}
 
 // canonical big-endian words (most significant first) <-> limbs
 DEV void fr_ld_be(fr& a, const uint32_t* w) { UNROLL for (int j = 0; j < 8; j++) a.v[j] = w[7 - j]; }
@@ -97,58 +101,4 @@ DEV void fr_sub(fr& r, const fr& a, const fr& b) {
     }
   }
   UNROLL for (int j = 0; j < 8; j++) r.v[j] = t[j];
-}
-
-// Montgomery product a*b*2^-256 mod r (CIOS, 32-bit words).
-DEVNI void fr_mul(fr& r, const fr& a, const fr& b) {
-  uint32_t t[10];
-  UNROLL for (int j = 0; j < 10; j++) t[j] = 0;
-  UNROLL for (int i = 0; i < 8; i++) {
-    unsigned long long c = 0;
-    UNROLL for (int j = 0; j < 8; j++) {
-      unsigned long long s = (unsigned long long)t[j] + (unsigned long long)a.v[j] * b.v[i] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    unsigned long long s = (unsigned long long)t[8] + c;
-    t[8] = (uint32_t)s;
-    t[9] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * FR_NINV;
-    s = (unsigned long long)t[0] + (unsigned long long)m * FR_MOD[0];
-    c = s >> 32;
-    UNROLL for (int j = 1; j < 8; j++) {
-      s = (unsigned long long)t[j] + (unsigned long long)m * FR_MOD[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (unsigned long long)t[8] + c;
-    t[7] = (uint32_t)s;
-    t[8] = t[9] + (uint32_t)(s >> 32);
-  }
-  fr_reduce_once(r, t);  // (ab + mr)/R < 2r < 2^256, so t[8] = 0
-}
-
-// a -> a*R mod r (canonical to Montgomery form)
-DEV void fr_to_mont(fr& r, const fr& a) {
-  fr r2;
-  fr_set(r2, FR_R2);
-  fr_mul(r, a, r2);
-}
-
-// a*R -> a (Montgomery form to canonical)
-DEV void fr_from_mont(fr& r, const fr& a) {
-  fr one;
-  fr_zero(one);
-  one.v[0] = 1;
-  fr_mul(r, a, one);
-}
-
-// a^(r-2) = a^-1 (Fermat), from the top bit of r - 2 (bit 254); 0 -> 0
-DEVNI void fr_inv(fr& r, const fr& a) {
-  fr acc = a;  // the top bit
-  for (int i = 253; i >= 0; i--) {
-    fr_mul(acc, acc, acc);
-    if ((FR_MINUS_2[i >> 5] >> (i & 31)) & 1) fr_mul(acc, acc, a);
-  }
-  r = acc;
 }

@@ -6,7 +6,8 @@
 //     sum_i p_ji * w_i / (z_j - w_i) for a batch of m blobs;
 //   * quotient_batch (:189): q_i = (p_i - y) * (w_i - z)^-1, 0 where
 //     w_i == z (the host fills that lane).
-// The field arithmetic is csrc/fr.cuh (K8's fr_mul/add/sub/inv).
+// The field arithmetic is csrc/fr.cuh (K8's Fr layout, additions and
+// subtractions) and mont_cs.cuh (the product and the inverse).
 //
 // Inputs and outputs are canonical: the blobs' 32-byte big-endian field
 // elements as 8 32-bit words, most significant first, exactly as the bytes
@@ -40,7 +41,25 @@
 // Longest dependent chain at [1, 4096] (16 blocks, a term a thread): 8 + 5
 // tree levels of one fraction add (3 independent products), the inversion
 // (~2 * 255 shift-subtract steps), 4 products.
-// The quotient is one thread per lane with a Fermat inverse (unchanged).
+//
+// Quotient design: Montgomery's batch inversion, one inversion a block.
+// A block of 128 threads takes 128 lanes, one a thread, and forms
+// d_i = w_i - z; a d_i of 0 (z on the domain) counts as 1 in the products
+// and its lane comes out 0, so no other lane is spoiled (lanes past n
+// count as 1 too). The block takes inclusive prefix and suffix products
+// of its d_i side by side (Hillis-Steele in shared memory, 7 steps of two
+// independent products), so lane i has the product of the other lanes,
+// prefix_{i-1} suffix_{i+1}, and times (p_i - y) it has the quotient's
+// numerator over D = prod d_i. One thread inverts D (mont_inv_binary:
+// shifts and subtractions, no products) and a last product gives q_i.
+// Montgomery factors: the d_i are Montgomery values (w_i and z R), p_i
+// and y enter canonical (read as Montgomery values they are p_i / R and
+// y / R), so the last product, by D^-1 R, leaves q_i canonical: no
+// conversion in or out but z's. 32 blocks cover 4096 lanes, so all 32
+// inversions run at once. Longest chain: 1 + 7 + 2 products, the
+// inversion, 1 product. (Over the whole subgroup prod (w_i - z) is
+// z^n - 1, which would take the inversion off the chain; the launch does
+// not assume its roots are the whole subgroup.)
 //
 // What bounds it: 32-bit multiplies (fr.cuh). The bound counts the least
 // Fr multiplications of the function, from the cheapest known method,
@@ -84,26 +103,12 @@ DEV void fr_r_over_n(fr& k, int log_n) {
   }
 }
 
-// q_i = (p_i - y) / (w_i - z), 0 where w_i == z; y, z in Montgomery form
-DEV void quotient_lane(uint32_t* q_be, const uint32_t* p_be, const uint32_t* w_mont, const fr& z, const fr& y) {
-  fr p, w, d;
-  fr_ld_be(p, p_be);
-  fr_to_mont(p, p);
-  fr_sub(p, p, y);
-  fr_set(w, w_mont);
-  fr_sub(d, w, z);
-  fr_inv(d, d);
-  fr_mul(p, p, d);
-  fr_from_mont(p, p);
-  fr_st_be(q_be, p);
-}
-
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
 #define BARY_THREADS 256
 #define BARY_FINISH_THREADS 64
-#define LANES_PER_BLOCK 64
+#define QUOT_THREADS 128
 // threads that fill the card: 132 SMs, 2048 threads each
 #define BARY_FILL (132LL * 2048)
 
@@ -223,16 +228,72 @@ bary_finish_kernel(const uint32_t* partial, const uint32_t* zs, uint32_t* ys, in
   }
 }
 
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
-quotient_kernel(const uint32_t* evals, const uint32_t* roots, const uint32_t* z_be, const uint32_t* y_be, uint32_t* q, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  fr z, y;
-  fr_ld_be(z, z_be);
-  fr_to_mont(z, z);
-  fr_ld_be(y, y_be);
-  fr_to_mont(y, y);
-  quotient_lane(q + 8 * i, evals + 8 * i, roots + 8 * i, z, y);
+// a lane a thread, QUOT_THREADS lanes a block: evals [n, 8] canonical,
+// roots [n, 8] Montgomery, z, y [8] canonical -> q [n, 8] canonical
+__global__ void __launch_bounds__(QUOT_THREADS)
+quotient_kernel(const uint32_t* evals, const uint32_t* roots, const uint32_t* z_be, const uint32_t* y_be, uint32_t* q,
+                long long n) {
+  __shared__ fr spre[QUOT_THREADS], ssuf[QUOT_THREADS];
+  __shared__ fr sinv;
+  const int t = threadIdx.x;
+  const long long i = (long long)blockIdx.x * QUOT_THREADS + t;
+  fr one, d, num;
+  fr_one(one);
+  d = one;
+  fr_zero(num);
+  bool hit = true;  // no lane, or w_i == z: 1 in the products, q_i = 0
+  if (i < n) {
+    fr z, r2, p, y;
+    fr_ld_be(z, z_be);
+    fr_set(r2, FR_R2);
+    fr_mulx(z, z, r2);
+    fr_set(d, roots + 8 * i);
+    fr_sub(d, d, z);
+    hit = fr_is_zero(d);
+    if (hit) d = one;
+    fr_ld_be(p, evals + 8 * i);
+    fr_ld_be(y, y_be);
+    fr_sub(num, p, y);  // (p_i - y) / R as a Montgomery value
+  }
+  // inclusive prefix and suffix products of the block's d_i
+  fr pre = d, suf = d;
+  spre[t] = d;
+  ssuf[t] = d;
+  __syncthreads();
+  for (int h = 1; h < QUOT_THREADS; h <<= 1) {
+    fr a, b;
+    if (t >= h) a = spre[t - h];
+    if (t + h < QUOT_THREADS) b = ssuf[t + h];
+    __syncthreads();
+    if (t >= h) {
+      fr_mulx(pre, pre, a);
+      spre[t] = pre;
+    }
+    if (t + h < QUOT_THREADS) {
+      fr_mulx(suf, suf, b);
+      ssuf[t] = suf;
+    }
+    __syncthreads();
+  }
+  // the other lanes' product times (p_i - y): (p_i - y) D / (R d_i)
+  {
+    const fr a = t > 0 ? spre[t - 1] : one;
+    const fr b = t + 1 < QUOT_THREADS ? ssuf[t + 1] : one;
+    fr o;
+    fr_mulx(o, a, b);
+    fr_mulx(num, num, o);
+  }
+  if (t == 0) {
+    fr r3;
+    fr_set(r3, FR_R3);
+    mont_inv_binary<8>(sinv.v, spre[QUOT_THREADS - 1].v, FR_MOD, FR_NINV, r3.v);  // D^-1 R
+  }
+  __syncthreads();
+  if (i < n) {
+    fr qi;
+    if (hit) fr_zero(qi); else fr_mulx(qi, num, sinv);
+    fr_st_be(q + 8 * i, qi);
+  }
 }
 
 extern "C" {
@@ -254,7 +315,7 @@ int kzg_barycentric(const uint32_t* evals, const uint32_t* roots, const uint32_t
 
 int kzg_quotient(const uint32_t* evals, const uint32_t* roots, const uint32_t* z, const uint32_t* y, uint32_t* q,
                  long long n, void* stream) {
-  quotient_kernel<<<(unsigned)((n + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+  quotient_kernel<<<(unsigned)((n + QUOT_THREADS - 1) / QUOT_THREADS), QUOT_THREADS, 0, (cudaStream_t)stream>>>(
       evals, roots, z, y, q, n);
   return (int)cudaGetLastError();
 }

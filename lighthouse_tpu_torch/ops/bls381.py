@@ -9,7 +9,10 @@ bls381_verify.py:103/108) and its batched Jacobian -> affine conversion
 (bls381_verify.py:122/138), and the per-point 256-bit ladders of
 ``g1_msm_ladder`` (msm.py:172; ``scalar_mul_wide``, the K9 ladder). The
 field and curve arithmetic they run is in ``csrc/bls381_field.cuh``; its
-bound is 32-bit multiply-adds.
+bound is 32-bit multiply-adds. The G1 kernels run a thread per lane; the
+G2 ladder runs a warp per lane on the team code of ``csrc/g2_team.cuh``
+(K5's), with a mixed addition where the point is affine (Z = 1), which
+gives the same coordinates as the general one.
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;

@@ -1,9 +1,10 @@
 """Build a CUDA source of ``../csrc`` with nvcc and bind it with ctypes.
 
 One shared library per source, built at first use into
-``lighthouse_tpu_torch/build/`` and keyed by a hash of the source and the
-headers it includes from ``csrc``, with a plain C interface (no PyTorch
-headers: seconds to build, not minutes). A failed build raises.
+``lighthouse_tpu_torch/build/`` and keyed by a hash of the source and of
+every header it reaches through ``#include "..."`` (headers included by
+headers too), with a plain C interface (no PyTorch headers: seconds to
+build, not minutes). A failed build raises.
 """
 
 from __future__ import annotations
@@ -78,9 +79,22 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def _key(self) -> str:
-        h = hashlib.sha256(self.source.read_bytes())
-        for inc in sorted(re.findall(r'#include "([^"]+)"', self.source.read_text())):
-            h.update((CSRC / inc).read_bytes())
+        """A hash of the source and of each header it reaches through
+        `#include "..."`, depth first, every file once; a header is looked
+        up beside the source."""
+        h = hashlib.sha256()
+        seen: set[Path] = set()
+
+        def visit(path: Path) -> None:
+            if path in seen:
+                return
+            seen.add(path)
+            data = path.read_bytes()
+            h.update(data)
+            for inc in re.findall(rb'#include "([^"]+)"', data):
+                visit(self.source.parent / inc.decode())
+
+        visit(self.source)
         return h.hexdigest()[:16]
 
     def load(self) -> ctypes.CDLL:

@@ -1,10 +1,10 @@
 """BLS12-381 scalar field Fr and the KZG evaluation kernels (K8).
 
 Counterpart of lighthouse_tpu/ops/fr.py. Its kernels, ``csrc/kzg_fr.cu``
-over the Fr arithmetic of ``csrc/fr.cuh``, replace the JAX package's
-``barycentric_eval_batch`` (:156), p_j(z_j) for a batch of blobs in
-evaluation form, and ``quotient_batch`` (:189), the opening quotient
-(p_i - y) / (w_i - z); the field operations ``fr_mul/add/sub/inv``
+over the Fr arithmetic of ``csrc/fr.cuh`` and ``csrc/mont_cs.cuh``,
+replace the JAX package's ``barycentric_eval_batch`` (:156), p_j(z_j) for
+a batch of blobs in evaluation form, and ``quotient_batch`` (:189), the
+opening quotient (p_i - y) / (w_i - z); the field operations ``fr_mul/add/sub/inv``
 (:78-102) are device code inside them, with no launch of their own (as
 K3), and their plain versions are here.
 
@@ -23,8 +23,9 @@ Dispatch is by the tensor's device: a CUDA tensor goes to the kernel
 The plain versions work on 16 16-bit limbs in int64 with the generic
 convolution and carry of ops/bls381.py. The barycentric one follows its
 kernel's method (a fraction and a plain sum per blob, one inverse per
-blob); the quotient's inverts per lane with Fermat's a^(r-2), as its
-kernel does.
+blob); the quotient's inverts per lane with Fermat's a^(r-2), where its
+kernel takes one batch inversion per block of lanes: the outputs are
+canonical field elements, so both give the same words.
 """
 
 from __future__ import annotations
@@ -190,7 +191,7 @@ def fr_sub16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fr_inv16(a: torch.Tensor) -> torch.Tensor:
-    """a^(r-2) from the top bit of r - 2, as fr.cuh's fr_inv; 0 -> 0."""
+    """a^(r-2) from the top bit of r - 2, as the JAX package's fr_inv; 0 -> 0."""
     acc = a
     for bit in bin(FR_MOD - 2)[3:]:
         acc = fr_mul16(acc, acc)
@@ -220,13 +221,13 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
 
 def words_to_mont16(words: torch.Tensor) -> torch.Tensor:
     """[..., 8] canonical big-endian words (int32) -> [..., 16] Montgomery
-    16-bit limbs, as the kernels' fr_ld_be + fr_to_mont."""
+    16-bit limbs: fr_ld_be, then a product by R^2 (the kernels' z)."""
     return fr_mul16(to16(_u32(words).flip(-1)), consts(words.device)["r2"])
 
 
 def mont16_to_words(a: torch.Tensor) -> torch.Tensor:
-    """[..., 16] Montgomery limbs -> [..., 8] canonical words (int32), as
-    fr_from_mont + fr_st_be."""
+    """[..., 16] Montgomery limbs -> [..., 8] canonical words (int32): a
+    product by 1, then fr_st_be."""
     return _i32(to32(fr_mul16(a, consts(a.device)["unit"].expand_as(a))).flip(-1))
 
 
@@ -379,7 +380,9 @@ def quotient(evals: torch.Tensor, roots: torch.Tensor, z: torch.Tensor, y: torch
     """q_i = (p_i - y) / (w_i - z) over the domain, 0 where w_i == z.
 
     evals [n, 8] canonical words, roots [n, 8] Montgomery limbs, z and y
-    [8] canonical words, all int32. Returns q [n, 8] canonical words."""
+    [8] canonical words, all int32; any n and any distinct roots (the
+    kernel inverts once per block of 128 lanes, not through z^n - 1).
+    Returns q [n, 8] canonical words."""
     n = evals.shape[0]
     _check(evals, (n, NLIMB_FR), "evals")
     _check(roots, (n, NLIMB_FR), "roots")

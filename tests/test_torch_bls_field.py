@@ -184,6 +184,26 @@ def test_scalar_mul_matches_oracle(group):
     assert is_inf(F, from_limbs(got.numpy())[2])
 
 
+@pytest.mark.parametrize("affine", [False, True])
+def test_g2_ladder_edge_scalars_match_oracle(affine):
+    """The G2 ladder's plain version (whose coordinates its warp-team kernel
+    equals limb for limb) at the edge scalars 0, 1, 2, 2^63 and 2^64 - 1,
+    on Jacobian points with Z != 1 and on the same points with Z = 1 (the
+    kernel's mixed addition), against the host oracle's pt_mul, as affine
+    points."""
+    rng = np.random.default_rng(9)
+    pts = bls_g2_points(rng, 5)
+    if affine:
+        pts = [(*to_affine(FQ2, p), FQ2.one) for p in pts]
+    assert all((p[2] == FQ2.one) == affine for p in pts)
+    ks = [0, 1, 2, 2**63, 2**64 - 1]
+    got = K2.g2_from_limbs(K2.scalar_mul("g2", torch.from_numpy(K2.g2_to_limbs(pts)), K2.scalars_to_tensor(ks)).numpy())
+    for g, p, k in zip(got, pts, ks):
+        want = pt_mul(FQ2, p, k)
+        assert to_affine(FQ2, g) == to_affine(FQ2, want)
+        assert is_inf(FQ2, g) == (k == 0)
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_segment_sum_and_affine_match_oracle(group):
     """Rows with a repeated point, a point and its negation, and infinity

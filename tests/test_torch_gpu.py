@@ -116,6 +116,23 @@ def test_bls_scalar_mul_matches_plain(cuda, group):
     assert torch.equal(got, K2.scalar_mul_plain(group, pts, k))
 
 
+@pytest.mark.parametrize("affine", [False, True])
+def test_bls_g2_ladder_edge_scalars_match_plain(cuda, affine):
+    """The warp-team G2 ladder at the edge scalars 0, 1, 2, 2^63 and
+    2^64 - 1 and 27 random ones, on Jacobian points (Z != 1) or affine
+    ones (Z = 1, the mixed addition), limb-equal to its plain version."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ2, to_affine
+
+    rng = np.random.default_rng(13)
+    pts = bls_g2_points(rng, 32)
+    if affine:
+        pts = [(*to_affine(FQ2, p), FQ2.one) for p in pts]
+    k = K2.scalars_to_tensor([0, 1, 2, 2**63, 2**64 - 1] + bls_scalars(rng, 27)).to(cuda)
+    pts = _g2(pts, cuda)
+    got = _launched(K2.COUNTS, "g2_scalar_mul", lambda: K2.scalar_mul("g2", pts, k))
+    assert torch.equal(got, K2.scalar_mul_plain("g2", pts, k))
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_bls_segment_sum_and_affine_match_plain(cuda, group):
     """Rows with a repeated point, a point and its negation, and infinity
@@ -325,6 +342,25 @@ def test_kzg_quotient_matches_plain_and_host(cuda, on_domain):
     p = K8.fr_from_words(words)
     for i in (0, 1, 77, n - 1):
         assert q[i] == (0 if roots[i] == z else (p[i] - y) * pow(roots[i] - z, R - 2, R) % R)
+
+
+@pytest.mark.parametrize("hit", [0, 127, 128, 2049, 4095])
+def test_kzg_quotient_hit_lane_in_each_block(cuda, hit):
+    """z on the domain at a block's first or last lane, or inside a block
+    (blocks of 128 lanes, one batch inversion each): that lane 0, every
+    other lane, its block's too, equal to the plain version."""
+    from chip_smoke import fr_scalars, kzg_blobs
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    n = 4096
+    rng = np.random.default_rng(30 + hit)
+    roots = _domain(n)
+    words = K8.words_from_bytes(kzg_blobs(rng, 1, n)[0], n)
+    zy = K8.as_i32(K8.fr_to_words([roots[hit], fr_scalars(rng, 1)[0]])).to(cuda)
+    args = (K8.as_i32(words).to(cuda), K8.as_i32(K8.mont_limbs(roots)).to(cuda), zy[0], zy[1])
+    got = _launched(K8.COUNTS, "quotient", lambda: K8.quotient(*args))
+    assert torch.equal(got, K8.quotient_plain(*args))
+    assert (got != 0).any(-1).nonzero().flatten().tolist() == [i for i in range(n) if i != hit]
 
 
 @pytest.mark.parametrize("n", [1, 37, 300])

@@ -107,6 +107,35 @@ def test_barycentric_and_quotient_match_jax_kernels():
         assert q == jq == formula
 
 
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("hit", [None, "first", "middle", "last"])
+def test_quotient_matches_jax_on_dev_domains(n, hit):
+    """The quotient's plain version against the JAX package's quotient_batch
+    and the formula on an insecure_dev domain, with z off the domain or on
+    it at the first, a middle or the last lane (that lane 0, the others
+    untouched)."""
+    roots = PK.TrustedSetup.insecure_dev(n).roots_brp
+    words = K8.words_from_bytes(_blobs(40 + n, 1, n)[0], n)
+    evals = K8.fr_from_words(words)
+    rng = np.random.default_rng(41 + n)
+    lane = {None: None, "first": 0, "middle": n // 2 + 3, "last": n - 1}[hit]
+    z = fr_scalars(rng, 1)[0] if lane is None else roots[lane]
+    y = fr_scalars(rng, 1)[0]
+    zy = K8.as_i32(K8.fr_to_words([z, y]))
+    got = K8.fr_from_words(K8.quotient(K8.as_i32(words), K8.as_i32(K8.mont_limbs(roots)), zy[0], zy[1]).numpy())
+    want = jax_fr.fr_from_device(
+        jax_fr.quotient_batch(
+            jnp.asarray(jax_fr.fr_to_device(evals)),
+            jnp.asarray(jax_fr.fr_to_device(roots)),
+            jnp.asarray(jax_fr.fr_to_device([z]))[0],
+            jnp.asarray(jax_fr.fr_to_device([y]))[0],
+        )
+    )
+    formula = [0 if w == z else (p - y) * pow(w - z, R - 2, R) % R for p, w in zip(evals, roots)]
+    assert got == want == formula
+    assert [i for i, q in enumerate(got) if q == 0] == ([] if lane is None else [lane])
+
+
 @pytest.mark.parametrize("m, on_domain", [(1, None), (3, 1)])
 def test_barycentric_one_blob_and_domain_point_match_jax(m, on_domain):
     """The barycentric plain version (one fraction and one inverse per
