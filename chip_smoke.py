@@ -496,6 +496,44 @@ def bls_twist_point_outside_subgroup(rng: np.random.Generator):
             return (x, y)
 
 
+def bls_twist_point_of_order(rng: np.random.Generator, q: int):
+    """An affine point of the twist E'(Fq2) of prime order q, with q^2 a
+    factor of the twist's cofactor H2 (13 and 23): [H2 R / q^2]T for a
+    seeded twist point T, whose q-part is Z/q x Z/q, so the result has
+    order q or is infinity (then the next T). Outside G2: the subgroup
+    check's ladder meets infinity on it."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import B2, FQ2, H2, R, is_inf, pt_mul, to_affine
+    from lighthouse_tpu_torch.crypto.bls12_381 import fields as F
+
+    while True:
+        x = tuple(int(v) % F.P for v in bls_scalars(rng, 2, 384))
+        y = F.f2_sqrt(F.f2_add(F.f2_mul(F.f2_sqr(x), x), B2))
+        if y is None:
+            continue
+        pt = pt_mul(FQ2, (x, y, FQ2.one), H2 * R // (q * q))
+        if not is_inf(FQ2, pt):
+            assert is_inf(FQ2, pt_mul(FQ2, pt, q))
+            return to_affine(FQ2, pt)
+
+
+def bls_g1_point_of_order(rng: np.random.Generator, q: int):
+    """A Jacobian point of E(Fq) of prime order q, a factor of the G1
+    cofactor H1 once (3): [H1 R / q]T for a seeded curve point T, or the
+    next T where that is infinity. A 64-bit ladder on it meets P == Q,
+    P == -Q and infinity."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, H1, R, is_inf, pt_mul
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import P
+
+    while True:
+        x = bls_scalars(rng, 1, 384)[0] % P
+        y = pow((x**3 + 4) % P, (P + 1) // 4, P)
+        if y * y % P != (x**3 + 4) % P:
+            continue
+        pt = pt_mul(FQ, (x, y, 1), H1 * R // q)
+        if not is_inf(FQ, pt) and is_inf(FQ, pt_mul(FQ, pt, q)):
+            return pt
+
+
 def htc_gx1_is_square(u: tuple) -> bool:
     """Is g(x1) a square for the field element u (an Fq2 pair), x1 the
     first SSWU candidate (the host oracle's map_to_curve_sswu)?"""
@@ -1038,8 +1076,10 @@ def _plain_ms(fn):
 def phase_bls_kernel_checks(seed: int) -> dict:
     """Each BLS kernel at the main path's shapes (32 lanes; [32, 512] for
     the pubkey sums; 33 pairs, and 2 as the KZG checks use), equal to its
-    plain version on the card,
-    with its time, its plain version's time and its bound."""
+    plain version on the card, with its time, its plain version's time and
+    its bound; the ladders also at their edge scalars, the G1 ladder at
+    K11's 4,096 lanes in each layout and both layouts' times by lane
+    count, the subgroup check also on points it must reject."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, G1_GEN, batch_to_affine, inf, pt_add, pt_neg, to_affine
 
     dev = torch.device("cuda")
@@ -1075,9 +1115,27 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     half = lanes // 2
     g2_edge = torch.cat((g2_t[:half], g2_z1[half:])).contiguous()
     edge_t = k_g.scalars_to_tensor(edge_k).to(dev)
+    # the G1 ladder's edge scalars, on Jacobian points (Z != 1) in the first
+    # half of the lanes and on affine ones (Z = 1) in the second
+    g1_z1 = torch.from_numpy(k_g.g1_to_limbs([(x, y, 1) for x, y in g1_aff[:lanes]])).to(dev)
+    g1_edge = torch.cat((g1_t[:half], g1_z1[half:])).contiguous()
+    # K11's shape: 4,096 lanes (the 32 points again, 4,096 scalars)
+    wide = RLC_POINTS
+    wide_k = bls_scalars(rng, wide)
+    g1_wide = g1_t.repeat(wide // lanes, 1, 1).contiguous()
+    wide_t = k_g.scalars_to_tensor(wide_k).to(dev)
     p_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g1_aff for v in a]).reshape(-1, 2, 12)).to(dev)
     q_aff = torch.from_numpy(k_g.fq_to_limbs([v for a in g2_aff for c in a for v in c]).reshape(-1, 2, 2, 12)).to(dev)
     no_inf = torch.zeros(lanes + 1, dtype=torch.bool, device=dev)
+    # the subgroup check's rejections: two points outside G2, twist points
+    # of order 13 and 23 (its ladder meets infinity), and a q_inf lane
+    sub_edge = list(g2_aff[:lanes])
+    sub_edge[3], sub_edge[9] = bls_twist_point_outside_subgroup(rng), bls_twist_point_outside_subgroup(rng)
+    sub_edge[14], sub_edge[27] = bls_twist_point_of_order(rng, 13), bls_twist_point_of_order(rng, 23)
+    sub_edge_t = torch.from_numpy(k_g.fq_to_limbs([v for a in sub_edge for c in a for v in c]).reshape(-1, 2, 2, 12)).to(dev)
+    sub_edge_inf = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    sub_edge_inf[20] = True
+    sub_edge_want = [i not in (3, 9, 14, 27) for i in range(lanes)]
     # seeded messages' field elements with u = 0 in lane 0 and a u whose
     # g(x1) is not a square in lane 1
     u_np, htc_lanes = htc_edge_field_elements(rng, lanes)
@@ -1091,6 +1149,21 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             _ladder_fq_muls(scalars, "g1"),
             2 * g1_t.numel() * W + lanes * 8,
         ),
+        "g1_scalar_mul[edge]": (
+            lambda: k_g.scalar_mul("g1", g1_edge, edge_t),
+            lambda: k_g.scalar_mul_plain("g1", g1_edge, edge_t),
+            _ladder_fq_muls(edge_k[:half], "g1") + _ladder_fq_muls(edge_k[half:], "g1", affine=True),
+            2 * g1_edge.numel() * W + lanes * 8,
+        ),
+        **{
+            f"g1_scalar_mul[{wide},{layout}]": (
+                lambda layout=layout: k_g.scalar_mul("g1", g1_wide, wide_t, layout=layout),
+                lambda: k_g.scalar_mul_plain("g1", g1_wide, wide_t),
+                _ladder_fq_muls(wide_k, "g1"),
+                2 * g1_wide.numel() * W + wide * 8,
+            )
+            for layout in k_g.G1_LAYOUTS
+        },
         # the main path's form (Z = 1: mixed additions), then Jacobian
         # points (Z != 1) and the edge scalars
         "g2_scalar_mul": (
@@ -1142,6 +1215,12 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             lambda: k_pair.g2_subgroup_check_plain(q_aff[:lanes], no_inf[:lanes]),
             lanes * BLS_FQ_MULS["subgroup_check"],
             q_aff[:lanes].numel() * W + 2 * lanes,
+        ),
+        "g2_subgroup_check[edge]": (
+            lambda: k_pair.g2_subgroup_check(sub_edge_t, sub_edge_inf),
+            lambda: k_pair.g2_subgroup_check_plain(sub_edge_t, sub_edge_inf),
+            (lanes - 1) * BLS_FQ_MULS["subgroup_check"],
+            sub_edge_t.numel() * W + 2 * lanes,
         ),
         "multi_pairing": (
             lambda: k_pair.multi_pairing(p_aff, no_inf, q_aff, no_inf),
@@ -1198,9 +1277,23 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     sub = k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes])
     if not bool(sub.all()):
         raise AssertionError("g2_subgroup_check rejected subgroup points")
+    if k_pair.g2_subgroup_check(sub_edge_t, sub_edge_inf).tolist() != sub_edge_want:
+        raise AssertionError("g2_subgroup_check's verdicts on the edge points are not the expected ones")
+    # the G1 ladder's two layouts by lane count: where the team's warp a
+    # lane stops paying (bls_g1_scalar_mul's G1_TEAM_MAX_LANES)
+    out["g1_scalar_mul_layouts_ms"] = {
+        n: {
+            layout: _time_ms(
+                lambda n=n, layout=layout: k_g.scalar_mul("g1", g1_wide[:n], wide_t[:n], layout=layout), reps=3, warmup=1
+            )
+            for layout in k_g.G1_LAYOUTS
+        }
+        for n in (lanes, 256, 512, 768, 1024, 2048, wide)
+    }
     out["registers"] = {
         "bls381_htc.cu": _ptxas_of(k_htc.LIB, "hash_to_g2"),
-        "bls381_g.cu": _ptxas_of(k_g.LIB, "g2_ladder", "scalar_mul_kernel"),
+        "bls381_g.cu": _ptxas_of(k_g.LIB, "g1_ladder", "g2_ladder", "scalar_mul_kernel"),
+        "bls381_pairing.cu": _ptxas_of(k_pair.LIB, "subgroup_check"),
     }
     emit(out)
     return out
@@ -2881,6 +2974,15 @@ def main(argv=None) -> int:
                     **(
                         {"ms_z_not_1": bls_checks["kernels"]["g2_scalar_mul[z!=1]"]["ms"]}
                         if name == "g2_scalar_mul"
+                        else {}
+                    ),
+                    # K11's 4,096 lanes, in each layout
+                    **(
+                        {
+                            f"ms_{RLC_POINTS}_{layout}": bls_checks["kernels"][f"g1_scalar_mul[{RLC_POINTS},{layout}]"]["ms"]
+                            for layout in k_g.G1_LAYOUTS
+                        }
+                        if name == "g1_scalar_mul"
                         else {}
                     ),
                 }

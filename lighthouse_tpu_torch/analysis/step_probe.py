@@ -1,12 +1,14 @@
 """What the steps of the warp-team and batch-inversion kernels cost, on the card.
 
 Times, with `clock64` on one warp of one block, the steps that K2's G2
-ladder, K5's team rounds (csrc/g2_team.cuh) and K8's quotient
-(csrc/kzg_fr.cu) are made of: an Fq product (out of line, `fq_mul1`, and
-inlined, `fq_mulx`), an Fq addition (`fp_add`), a `__syncwarp`, a team
-round of three Fq2 products on plain operands, a team doubling, a general
-and a mixed team addition, an Fr product (`fr_mulx`) and one Fr binary
-inversion (`mont_inv_binary<8>`, on one thread, as the kernels run it).
+ladder, K4's subgroup check, K5's team rounds (csrc/g2_team.cuh), K2's G1
+ladder (csrc/g1_team.cuh) and K8's quotient (csrc/kzg_fr.cu) are made
+of: an Fq product (out of line, `fq_mul1`, and inlined, `fq_mulx`), an Fq
+addition (`fp_add`), a `__syncwarp`, a team round of three Fq2 products
+on plain operands, a G2 team doubling, a general and a mixed G2 team
+addition, an Fr product (`fr_mulx`), one Fr binary inversion
+(`mont_inv_binary<8>`, on one thread, as the kernels run it), and a G1
+team doubling and addition.
 Each is the mean over a loop of dependent repetitions, in SM clock
 cycles, read from lane 0.
 
@@ -33,10 +35,13 @@ from ..ops import bls381 as K2
 from ..ops import fr as K8
 from ..ops.cuda_build import BUILD_DIR, CSRC, nvcc
 
-STEPS = ("fq_mul1", "fq_mulx", "fp_add", "syncwarp", "team_round3", "team_dbl", "team_add", "team_madd", "fr_mulx", "fr_inv_binary")
+STEPS = (
+    "fq_mul1", "fq_mulx", "fp_add", "syncwarp", "team_round3", "team_dbl", "team_add", "team_madd", "fr_mulx",
+    "fr_inv_binary", "g1_team_dbl", "g1_team_add",
+)
 
 _SOURCE = r"""
-#include "g2_team.cuh"
+#include "g1_team.cuh"
 #include "kzg_fr.cu"
 
 #define REPS 64
@@ -48,17 +53,25 @@ _SOURCE = r"""
     if (lane == 0) clk[slot] = (t1 - t0) / (reps);     \
   }
 
-// pts [2, 3, 2, 12]: a Jacobian and an affine G2 point; frv [16, 8] Fr
-// Montgomery limbs; clk [10] cycles; sink keeps the results live
+// pts [2, 3, 2, 12]: a Jacobian and an affine G2 point; g1 [2, 3, 12]: two
+// Jacobian G1 points; frv [16, 8] Fr Montgomery limbs; clk [12] cycles;
+// sink keeps the results live
 __global__ void __launch_bounds__(32)
-step_probe_kernel(const long long* pts, const uint32_t* frv, long long* sink, long long* clk) {
+step_probe_kernel(const long long* pts, const long long* g1, const uint32_t* frv, long long* sink, long long* clk) {
   __shared__ fp opa[32], opb[32], prod[32];
   __shared__ fp2 slots[G2_SLOTS];
   __shared__ jac<fp2> pt[3];
+  __shared__ fp slots1[G1_SLOTS];
+  __shared__ jac<fp> pt1[3];
   const int lane = threadIdx.x;
   const G2Team tm{lane, opa, opb, prod, slots};
+  const G1Team tm1{lane, slots1};
   if (lane < 6) fp2_ld(lane % 3 == 0 ? pt[lane / 3].x : lane % 3 == 1 ? pt[lane / 3].y : pt[lane / 3].z,
                        pts + lane * 24);
+  if (lane >= 6 && lane < 12) {
+    jac<fp>& q = pt1[(lane - 6) / 3];
+    fp_ld(lane % 3 == 0 ? q.x : lane % 3 == 1 ? q.y : q.z, g1 + (lane - 6) * 12);
+  }
   tm.sync();
   fp a = pt[0].x.c0, b = pt[0].y.c0, c = pt[0].x.c1;
   TIME(0, REPS, fq_mul1(a, a, b));
@@ -83,11 +96,14 @@ step_probe_kernel(const long long* pts, const uint32_t* frv, long long* sink, lo
     fr_set(inv, frv + 8 * it);
     mont_inv_binary<8>(inv.v, inv.v, FR_MOD, FR_NINV, r3.v);
   });
-  if (lane == 0) sink[0] = (long long)a.v[0] + c.v[0] + x.v[0] + inv.v[0] + pt[2].x.c0.v[0];
+  TIME(10, REPS, team_dbl(tm1, pt1[2], pt1[0]));
+  TIME(11, REPS, team_add(tm1, pt1[2], pt1[0], pt1[1]));
+  if (lane == 0) sink[0] = (long long)a.v[0] + c.v[0] + x.v[0] + inv.v[0] + pt[2].x.c0.v[0] + pt1[2].x.v[0];
 }
 
-extern "C" int step_probe(const long long* pts, const uint32_t* frv, long long* sink, long long* clk) {
-  step_probe_kernel<<<1, 32>>>(pts, frv, sink, clk);
+extern "C" int step_probe(const long long* pts, const long long* g1, const uint32_t* frv, long long* sink,
+                          long long* clk) {
+  step_probe_kernel<<<1, 32>>>(pts, g1, frv, sink, clk);
   return (int)cudaGetLastError();
 }
 """
@@ -108,18 +124,19 @@ def build(out: Path) -> Path:
 
 
 def main(argv=None) -> int:
-    from ..crypto.bls12_381 import FQ2, G2_GEN, R, pt_add, pt_mul, to_affine
+    from ..crypto.bls12_381 import FQ, FQ2, G1_GEN, G2_GEN, R, pt_add, pt_mul, to_affine
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=BUILD_DIR / "step_probe")
     args = ap.parse_args(argv)
     lib = ctypes.CDLL(str(build(args.out)))
-    lib.step_probe.argtypes = [ctypes.c_void_p] * 4
+    lib.step_probe.argtypes = [ctypes.c_void_p] * 5
     rng = np.random.default_rng(1)
     ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(18)]
     jac_pt = pt_add(FQ2, pt_mul(FQ2, G2_GEN, ks[0]), G2_GEN)  # Z != 1
     pts = torch.from_numpy(K2.g2_to_limbs([jac_pt, (*to_affine(FQ2, pt_mul(FQ2, G2_GEN, ks[1])), FQ2.one)])).cuda()
     frv = K8.as_i32(K8.mont_limbs(ks[2:])).cuda()
+    g1 = torch.from_numpy(K2.g1_to_limbs([pt_add(FQ, pt_mul(FQ, G1_GEN, k), G1_GEN) for k in ks[:2]])).cuda()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
@@ -127,7 +144,7 @@ def main(argv=None) -> int:
     runs = []
     for _ in range(2):
         clk = torch.zeros(len(STEPS), dtype=torch.int64, device="cuda")
-        if lib.step_probe(pts.data_ptr(), frv.data_ptr(), sink.data_ptr(), clk.data_ptr()):
+        if lib.step_probe(pts.data_ptr(), g1.data_ptr(), frv.data_ptr(), sink.data_ptr(), clk.data_ptr()):
             raise RuntimeError("step_probe launch failed")
         torch.cuda.synchronize()
         runs.append(dict(zip(STEPS, clk.tolist())))

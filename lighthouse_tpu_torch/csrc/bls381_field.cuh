@@ -30,7 +30,9 @@
 // floating point touches a value (consensus determinism).
 //
 // The code is plain C++ for one thread: a lane's state lives in
-// registers and local memory, and kernels run one thread per lane.
+// registers and local memory. The one-thread kernels run a thread per
+// lane; the team kernels (g1_team.cuh, g2_team.cuh, K4's Fq12 rounds) use
+// it for a lane's share of a round.
 // Outside nvcc (no __CUDACC__) the same functions compile as ordinary
 // host C++.
 #pragma once
@@ -401,17 +403,6 @@ template <class F> DEVNI void pt_mul_u64(jac<F>& r, const jac<F>& p, unsigned lo
   r = acc;
 }
 
-// [|x|]P, left to right from P over the bits of |x| below its top bit
-// (the JAX package's _ladder_mul_const schedule)
-template <class F> DEVNI void pt_mul_x_abs(jac<F>& r, const jac<F>& p) {
-  jac<F> acc = p;
-  for (int i = 62; i >= 0; i--) {
-    pt_double(acc, acc);
-    if ((BLS_X_ABS >> i) & 1) pt_add(acc, acc, p);
-  }
-  r = acc;
-}
-
 // affine (x, y) = (X/Z^2, Y/Z^3); an infinity gives (0, 0)
 template <class F> DEVNI void pt_to_affine(F& ax, F& ay, const jac<F>& p) {
   F zi, zi2, t;
@@ -420,24 +411,6 @@ template <class F> DEVNI void pt_to_affine(F& ax, F& ay, const jac<F>& p) {
   f_mul(ax, p.x, zi2);
   f_mul(t, zi2, zi);
   f_mul(ay, p.y, t);
-}
-
-// psi on Jacobian twisted coordinates: (cx * conj(X), cy * conj(Y), conj(Z))
-DEVNI void g2_psi(jac<fp2>& r, const jac<fp2>& p) {
-  fp2 c;
-  fp2_conj(r.x, p.x); fp2_const(c, BLS_PSI_CX); fp2_mul(r.x, r.x, c);
-  fp2_conj(r.y, p.y); fp2_const(c, BLS_PSI_CY); fp2_mul(r.y, r.y, c);
-  fp2_conj(r.z, p.z);
-}
-
-// psi(Q) == [x]Q for an affine twist point (infinity counts as a member)
-DEVNI bool g2_in_subgroup(const fp2& qx, const fp2& qy) {
-  jac<fp2> q, xq, s;
-  q.x = qx; q.y = qy; fp2_one(q.z);
-  pt_mul_x_abs(xq, q);         // [|x|]Q
-  g2_psi(s, q);
-  pt_add(s, s, xq);            // psi(Q) + [|x|]Q == psi(Q) - [x]Q
-  return fp2_is_zero(s.z);
 }
 
 // ---------------------------------------------------------------------------

@@ -12,20 +12,33 @@
 //     scalars, batch_g1_scalar_mul over NBITS = 256 (the tree sum after
 //     them is g1_segment_sum).
 //
-// Design: one thread per lane; a lane's points live in registers and local
-// memory. The G1 ladders branch on the scalar's bits (they are public: the
-// verifier's random scalars), running all 64 bits left to right from the
-// canonical infinity. The G2 ladder runs a warp per lane instead (the team
-// code of g2_team.cuh, K5's): 32 lanes are 32 warps on 32 SMs, a round
-// puts up to eight Fq2 products on the warp's lanes, and the bit branch is
-// the team's own, so a warp pays an addition only on its own scalar's set
-// bits (a warp of 32 one-thread ladders diverged on nearly every bit). It
-// starts from P at the scalar's top bit, which is what the canonical
-// infinity's doublings and first addition give, so its output equals the
-// one-thread ladder's (pt_mul_u64) limb for limb: (bits(k) - 1) team
-// doublings of 3 rounds and (popcount(k) - 1) additions of 6 rounds, or
-// of 5 for an affine P (Z = 1, as the verifier's decompressed signatures
-// come: team_madd), about 380 rounds in one chain for a 64-bit draw.
+// Design. The G1 and G2 ladders run a warp per lane: 32 lanes are 32
+// warps on 32 SMs, and the bit branch is the team's own, so a warp pays an
+// addition only on its own scalar's set bits (a warp of 32 one-thread
+// ladders diverged on nearly every bit). The G2 ladder runs on
+// g2_team.cuh (K5's team code): a round puts up to eight Fq2 products on
+// the warp's lanes. The G1 ladder runs on g1_team.cuh: a round puts up to
+// five Fq products on lanes, one a lane, each its slot's value, and one
+// lane forms each operand sum once between rounds. Both start from P at
+// the scalar's top bit, which is what the canonical infinity's doublings
+// and first addition give, so their output equals the one-thread ladder's
+// (pt_mul_u64) limb for limb, an infinity input's coordinates included:
+// (bits(k) - 1) team doublings and (popcount(k) - 1) additions. A G1
+// doubling is 3 rounds and an addition 5, about 345 rounds in one chain
+// for a 64-bit draw; a G2 doubling 3 rounds and an addition 6, or 5 for an
+// affine P (Z = 1, as the verifier's decompressed signatures come:
+// team_madd), about 380.
+// A warp a lane keeps a few lanes of the SM's multipliers busy in each
+// round, so the G1 team layout loses once enough lanes fill the card:
+// bls_g1_scalar_mul keeps the team layout up to G1_TEAM_MAX_LANES (768)
+// lanes and runs a thread per lane above it (scalar_mul_kernel, all 64
+// bits from the canonical infinity, pt_mul_u64). On an NVIDIA H100 80GB
+// HBM3 at 700 W (chip_smoke.py phase 3, g1_scalar_mul_layouts_ms) the team
+// layout took 1.144 ms at 32 lanes, 1.696 at 512, 2.471 at 768, 2.735 at
+// 1,024 and 9.523 at 4,096; the thread layout 2.63-2.68 ms at every
+// count: the crossover lies between 768 and 1,024 lanes. The verifier's
+// chunks (<= 32 lanes) take the team layout, K11's 4,096 lanes the thread
+// one.
 // A segment sum is one block per segment, a tree over
 // the (power-of-two) padded axis in a global scratch buffer, one level per
 // __syncthreads(); the tree pairs (0,1), (2,3), ... and then their sums, as
@@ -63,12 +76,15 @@
 // multiplies per Montgomery multiplication over 64 multiplies per clock
 // per SM (CUDA C++ Programming Guide, compute capability 9.0), 132 SMs,
 // 1.98 GHz.
-#include "g2_team.cuh"
+#include "g1_team.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
 #define LANES_PER_BLOCK 64
+// bls_g1_scalar_mul's layout: a warp team per lane up to this many lanes,
+// a thread per lane above it (measured crossover: see the header)
+#define G1_TEAM_MAX_LANES 768
 
 template <class F>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
@@ -108,6 +124,28 @@ g2_ladder_kernel(const long long* pts, const long long* k, long long* out) {
     }
   }
   if (lane < 3) fp2_st(out + i * 72 + lane * 24, lane == 0 ? acc.x : lane == 1 ? acc.y : acc.z);
+}
+
+// a warp per lane: pts [n, 3, 12] Jacobian G1, k [n] -> out [n, 3, 12]
+__global__ void __launch_bounds__(G1_TEAM)
+g1_ladder_kernel(const long long* pts, const long long* k, long long* out) {
+  __shared__ fp slots[G1_SLOTS];
+  __shared__ jac<fp> pt[2];
+  const int lane = threadIdx.x;
+  const long long i = blockIdx.x;
+  const G1Team tm{lane, slots};
+  jac<fp>&p = pt[0], &acc = pt[1];
+  if (lane < 3) fp_ld(lane == 0 ? p.x : lane == 1 ? p.y : p.z, pts + i * 36 + lane * 12);
+  tm.sync();
+  const unsigned long long s = (unsigned long long)k[i];
+  int top = 63;
+  while (top >= 0 && !((s >> top) & 1)) top--;
+  if (top < 0) team_inf(tm, acc); else team_copy(tm, acc, p);
+  for (int b = top - 1; b >= 0; b--) {
+    team_dbl(tm, acc, acc);
+    if ((s >> b) & 1) team_add(tm, acc, acc, p);
+  }
+  if (lane < 3) fp_st(out + i * 36 + lane * 12, lane == 0 ? acc.x : lane == 1 ? acc.y : acc.z);
 }
 
 // pts [n, 3, 12] G1; words [n, 8] int32, canonical 256-bit scalars as
@@ -190,9 +228,16 @@ static unsigned grid_for(long long n) { return (unsigned)((n + LANES_PER_BLOCK -
 
 extern "C" {
 
-int bls_g1_scalar_mul(const long long* pts, const long long* k, long long* out, long long n, void* stream) {
-  scalar_mul_kernel<fp><<<grid_for(n), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, k, out, n);
+// layout 1: a warp team per lane; 0: a thread per lane
+int bls_g1_scalar_mul_layout(const long long* pts, const long long* k, long long* out, long long n, int team,
+                             void* stream) {
+  if (team) g1_ladder_kernel<<<(unsigned)n, G1_TEAM, 0, (cudaStream_t)stream>>>(pts, k, out);
+  else scalar_mul_kernel<fp><<<grid_for(n), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, k, out, n);
   return (int)cudaGetLastError();
+}
+
+int bls_g1_scalar_mul(const long long* pts, const long long* k, long long* out, long long n, void* stream) {
+  return bls_g1_scalar_mul_layout(pts, k, out, n, n <= G1_TEAM_MAX_LANES, stream);
 }
 
 int bls_g2_scalar_mul(const long long* pts, const long long* k, long long* out, long long n, void* stream) {

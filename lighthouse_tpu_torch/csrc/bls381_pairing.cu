@@ -44,10 +44,23 @@
 //      exponentiation in team rounds. Only the Fq2 inversion inside its
 //      Fq12 inverse (a norm, one Fq inversion by the binary extended
 //      Euclidean algorithm, two products) runs on one lane.
+//   3. subgroup_check_kernel: a warp per point on g2_team.cuh's G2 team
+//      steps (K5's and the G2 ladder's): [|x|]Q from Q at the top bit of
+//      |x| = 0xd201000000010000, 63 team doublings and a mixed addition
+//      (team_madd, Q affine) at each of the 5 set bits below it; psi(Q) =
+//      (cx conj(x), cy conj(y), 1) in one round of two Fq2 products; then
+//      s = [|x|]Q + psi(Q) by team_madd (psi(Q) is affine), and the
+//      verdict Z(s) == 0, read by one lane. About 63 * 3 + 6 * 5 + 1 = 220
+//      rounds in one chain. A q_inf point writes 1 without the ladder (the
+//      block's own value: the whole team leaves). The JAX code and the
+//      plain version add the other way round, pt_add(psi(Q), [|x|]Q); the
+//      verdict is the same: both sums are infinity exactly when
+//      psi(Q) = -[|x|]Q, and an infinity [|x|]Q gives psi(Q) (Z = 1) in
+//      either order.
 // Halvings (the doubling step's a and g) are a modular halving, not a
-// product. Every value is fully reduced, so the output equals the plain
-// version's (ops/bls381_pairing.py) limb for limb. The subgroup check is
-// one thread per point.
+// product. Every value is fully reduced, so the multi-pairing's output
+// equals the plain version's (ops/bls381_pairing.py) limb for limb, and
+// the subgroup check's verdicts equal its verdicts.
 //
 // What bounds it: 32-bit multiply-adds. The bound counts the least Fq
 // multiplications the function needs, from the cheapest known way to
@@ -58,7 +71,9 @@
 //   * subgroup check per affine point Q: [|x|]Q is an affine doubling
 //     (13), 62 doublings (16) and 5 mixed additions (29); psi(Q) 5 (its
 //     x constant is imaginary: 2); comparing it with the Jacobian [x]Q
-//     takes Z^2, Z^3 and two products (11): 1,166.
+//     takes Z^2, Z^3 and two products (11): 1,166. (The kernel does more:
+//     Jacobian doublings throughout and a mixed addition where the
+//     comparison suffices; the bound counts the least.)
 //   * multi-pairing of m affine pairs: one shared accumulator, so the f^2
 //     of each of 62 doubling steps (36) is paid once, not per pair; per
 //     pair 63 doubling steps (25: 3 M, 6 S and 4 Fq products by x_P, y_P)
@@ -70,8 +85,7 @@
 //     (x-1)/3, x-1 and three times |x|: 319 steps, 17 of them products;
 //     4 products, a p- and a p^2-Frobenius): 7,182. For m = 33: 155,631.
 // chip_smoke.py turns these counts into a bound (BLS_FQ_MULS there).
-#include "bls381_field.cuh"
-#include "mont_cs.cuh"
+#include "g2_team.cuh"
 
 DEV void fp2_halve(fp2& r, const fp2& a) { fp_half(r.c0, a.c0); fp_half(r.c1, a.c1); }
 
@@ -80,7 +94,6 @@ DEV void fp2_triple(fp2& r, const fp2& a) { fp2 t; fp2_add(t, a, a); fp2_add(r, 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-#define LANES_PER_BLOCK 64
 #define TEAM 32          // lanes of a team: one warp
 #define TEAM_PRODUCTS 32 // products of one round: one a lane
 #define MILLER_TEAMS 4   // teams of a Miller-loop block
@@ -610,16 +623,40 @@ DEV void team_st12(const Team& tm, long long* dst, const fp12& f) {
   tm.sync();
 }
 
-// q [n, 2, 2, 12] affine, q_inf [n] -> ok [n]
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
-subgroup_check_kernel(const long long* q, const unsigned char* q_inf, unsigned char* ok, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (q_inf[i]) { ok[i] = 1; return; }
-  fp2 x, y;
-  fp2_ld(x, q + i * 48);
-  fp2_ld(y, q + i * 48 + 24);
-  ok[i] = g2_in_subgroup(x, y) ? 1 : 0;
+// a warp per point: q [n, 2, 2, 12] affine, q_inf [n] -> ok [n]
+__global__ void __launch_bounds__(G2_TEAM)
+subgroup_check_kernel(const long long* q, const unsigned char* q_inf, unsigned char* ok) {
+  __shared__ fp opa[G2_TEAM], opb[G2_TEAM], prod[G2_TEAM];
+  __shared__ fp2 slots[G2_SLOTS];
+  __shared__ jac<fp2> pt[3];
+  const int lane = threadIdx.x;
+  const long long i = blockIdx.x;
+  if (q_inf[i]) {  // the block's own value: the whole team leaves
+    if (lane == 0) ok[i] = 1;
+    return;
+  }
+  const G2Team tm{lane, opa, opb, prod, slots};
+  jac<fp2>&Q = pt[0], &acc = pt[1], &psi = pt[2];
+  if (lane < 2) fp2_ld(lane == 0 ? Q.x : Q.y, q + i * 48 + lane * 24);
+  if (lane == 2) fp2_one(Q.z);
+  if (lane == 3) fp2_one(psi.z);  // conj(1)
+  tm.sync();
+  team_copy(tm, acc, Q);
+  for (int b = 62; b >= 0; b--) {  // [|x|]Q, from Q at the top bit
+    team_dbl(tm, acc, acc, false);
+    if ((BLS_X_ABS >> b) & 1) team_madd(tm, acc, acc, Q);
+  }
+  // psi(Q) = (cx conj(x), cy conj(y), 1) in one round, into slots 0 and 1
+  team_round(tm, 2, 0, [&](int k, int c, int j, fp& a, fp& b) {
+    fp_const(a, k == 0 ? BLS_PSI_CX[c] : BLS_PSI_CY[c]);
+    const fp2& y = k == 0 ? Q.x : Q.y;
+    if (j == 0) b = y.c0; else fp_neg(b, y.c1);
+  });
+  if (lane == 0) psi.x = slots[0];
+  if (lane == 1) psi.y = slots[1];
+  tm.sync();
+  team_madd(tm, acc, acc, psi);  // [|x|]Q + psi(Q): Z = 0 iff psi(Q) = [x]Q
+  if (lane == 0) ok[i] = fp2_is_zero(acc.z) ? 1 : 0;
 }
 
 // team i: pair i's Miller loop (1 for an infinity pair) -> scratch [m, 144]
@@ -681,8 +718,7 @@ extern "C" {
 
 int bls_g2_subgroup_check(const long long* q, const unsigned char* q_inf, unsigned char* ok,
                           long long n, void* stream) {
-  unsigned grid = (unsigned)((n + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK);
-  subgroup_check_kernel<<<grid, LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(q, q_inf, ok, n);
+  subgroup_check_kernel<<<(unsigned)n, G2_TEAM, 0, (cudaStream_t)stream>>>(q, q_inf, ok);
   return (int)cudaGetLastError();
 }
 

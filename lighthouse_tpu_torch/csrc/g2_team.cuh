@@ -1,6 +1,8 @@
 // Warp-team G2 arithmetic: a warp works on one Jacobian point over Fq2
 // together. Shared by K5's hash-to-G2 (bls381_htc.cu: the sum on E', the
-// isogeny, the cofactor clearing) and K2's G2 ladder (bls381_g.cu).
+// isogeny, the cofactor clearing), K2's G2 ladder (bls381_g.cu) and K4's
+// subgroup check (bls381_pairing.cu); its fq_mul1 also serves the G1 team
+// (g1_team.cuh).
 //
 // The team's state lives in shared memory, and each round puts up to eight
 // Fq2 products on the warp's lanes, four Fq products each (schoolbook: no
@@ -249,8 +251,9 @@ DEV void team_add_finish(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p, const
 // P == -Q gives the canonical infinity. The branches are the team's own
 // (every lane reads the same shared values).
 DEVNI void team_add(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p, const jac<fp2>& q, bool a_coef) {
-  if (fp2_is_zero(p.z)) { team_copy(tm, r, q); return; }
-  if (fp2_is_zero(q.z)) { team_copy(tm, r, p); return; }
+  // each case waits for every lane to read it before r (p or q) changes
+  if (fp2_is_zero(p.z)) { tm.sync(); team_copy(tm, r, q); return; }
+  if (fp2_is_zero(q.z)) { tm.sync(); team_copy(tm, r, p); return; }
   fp2* v = tm.v;
   // slots: Z1Z1 0, Z2Z2 1, U1 2, U2 3, T1 4, T2 5, S1 6, S2 7
   team_round(tm, 2, 0, [&](int k, int i, int j, fp& a, fp& b) {
@@ -276,7 +279,7 @@ DEVNI void team_add(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p, const jac<
 // S1 = Y1 come out of products by Z2 (exact), and S2 = (Y2 Z1) Z1Z1
 // needs no Z1^3 first.
 DEVNI void team_madd(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p, const jac<fp2>& q) {
-  if (fp2_is_zero(p.z)) { team_copy(tm, r, q); return; }
+  if (fp2_is_zero(p.z)) { tm.sync(); team_copy(tm, r, q); return; }
   fp2* v = tm.v;
   // slots: Z1Z1 0, Y2 Z1 1, U1 2, U2 3, S1 6, S2 7 (team_add's); the
   // lanes of slots 4 and 5 repeat S1's product

@@ -9,10 +9,12 @@ bls381_verify.py:103/108) and its batched Jacobian -> affine conversion
 (bls381_verify.py:122/138), and the per-point 256-bit ladders of
 ``g1_msm_ladder`` (msm.py:172; ``scalar_mul_wide``, the K9 ladder). The
 field and curve arithmetic they run is in ``csrc/bls381_field.cuh``; its
-bound is 32-bit multiply-adds. The G1 kernels run a thread per lane; the
-G2 ladder runs a warp per lane on the team code of ``csrc/g2_team.cuh``
-(K5's), with a mixed addition where the point is affine (Z = 1), which
-gives the same coordinates as the general one.
+bound is 32-bit multiply-adds. The G2 ladder runs a warp per lane on the
+team code of ``csrc/g2_team.cuh`` (K5's), with a mixed addition where the
+point is affine (Z = 1), which gives the same coordinates as the general
+one; the G1 ladder runs a warp per lane on ``csrc/g1_team.cuh`` up to
+768 lanes and a thread per lane above (the measured crossover, in
+``bls381_g.cu``'s header); the other G1 kernels run a thread per lane.
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;
@@ -63,6 +65,7 @@ LIB = CudaLibrary(
     "bls381_g.cu",
     {
         "bls_g1_scalar_mul": ("p", "p", "p", "i64", "p"),
+        "bls_g1_scalar_mul_layout": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g2_scalar_mul": ("p", "p", "p", "i64", "p"),
         "bls_g1_scalar_mul_wide": ("p", "p", "p", "i64", "p"),
         "bls_g1_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
@@ -513,12 +516,19 @@ def _cuda_ok(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def scalar_mul(group: str, pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+G1_LAYOUTS = ("thread", "team")
+
+
+def scalar_mul(group: str, pts: torch.Tensor, k: torch.Tensor, layout: str | None = None) -> torch.Tensor:
     """[n, 3, coord] Jacobian points times [n] 64-bit scalars (int64 bit
-    patterns) -> [n, 3, coord]. `group` is "g1" or "g2"."""
+    patterns) -> [n, 3, coord]. `group` is "g1" or "g2". For "g1" the
+    kernel picks its layout by lane count (csrc/bls381_g.cu); `layout`
+    ("team": a warp a lane, "thread": a thread a lane) forces one."""
     check_limbs(pts, (3, *_coord(group)), "pts")
     if k.dtype != torch.int64 or k.shape != pts.shape[:1]:
         raise ValueError(f"scalars: expected [{pts.shape[0]}] int64, got {list(k.shape)} {k.dtype}")
+    if layout is not None and (group != "g1" or layout not in G1_LAYOUTS):
+        raise ValueError(f"layout {layout!r}: only g1 has one, of {G1_LAYOUTS}")
     if pts.device.type == "cpu":
         return scalar_mul_plain(group, pts, k)
     dev = _cuda_ok(pts, k)
@@ -526,7 +536,11 @@ def scalar_mul(group: str, pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(pts)
     n = pts.shape[0]
     if n:
-        LIB.launch(f"bls_{group}_scalar_mul", pts.data_ptr(), k.data_ptr(), out.data_ptr(), n, device=dev)
+        args = (pts.data_ptr(), k.data_ptr(), out.data_ptr(), n)
+        if layout is None:
+            LIB.launch(f"bls_{group}_scalar_mul", *args, device=dev)
+        else:
+            LIB.launch("bls_g1_scalar_mul_layout", *args, G1_LAYOUTS.index(layout), device=dev)
         COUNTS[f"{group}_scalar_mul"] += 1
     return out
 

@@ -6,6 +6,8 @@ and ``multi_pairing_check_device`` (:340, with ``miller_loop_batch`` :211,
 ``_mask_and_reduce`` :325 and ``final_exp_cubed`` :305);
 ``g2_clear_cofactor_device`` (:440) is device code run inside the
 hash-to-G2 kernel (ops/bls381_htc.py), and its plain version is here.
+The multi-pairing runs a warp per pair on Fq12 team rounds; the subgroup
+check a warp per point on the G2 team steps of ``csrc/g2_team.cuh``.
 
 The GT convention: the final exponentiation is the standard one,
 f^((p^12 - 1)/r), equal to the host oracle's ``pairing`` value (the JAX

@@ -204,6 +204,27 @@ def test_g2_ladder_edge_scalars_match_oracle(affine):
         assert is_inf(FQ2, g) == (k == 0)
 
 
+@pytest.mark.parametrize("affine", [False, True])
+def test_g1_ladder_edge_scalars_match_oracle(affine):
+    """The G1 ladder's plain version (whose coordinates its warp-team kernel
+    equals limb for limb) at the edge scalars 0, 1, 2, 2^63 and 2^64 - 1,
+    on Jacobian points with Z != 1 and on the same points with Z = 1, and
+    on an infinity input, against the host oracle's pt_mul, as affine
+    points."""
+    rng = np.random.default_rng(10)
+    pts = bls_g1_points(rng, 5)
+    if affine:
+        pts = [(*to_affine(FQ, p), FQ.one) for p in pts]
+    assert all((p[2] == FQ.one) == affine for p in pts)
+    pts.append(inf(FQ))
+    ks = [0, 1, 2, 2**63, 2**64 - 1, 2**64 - 1]
+    got = K2.g1_from_limbs(K2.scalar_mul("g1", torch.from_numpy(K2.g1_to_limbs(pts)), K2.scalars_to_tensor(ks)).numpy())
+    for g, p, k in zip(got, pts, ks):
+        want = pt_mul(FQ, p, k)
+        assert to_affine(FQ, g) == to_affine(FQ, want)
+        assert is_inf(FQ, g) == (k == 0 or is_inf(FQ, p))
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_segment_sum_and_affine_match_oracle(group):
     """Rows with a repeated point, a point and its negation, and infinity

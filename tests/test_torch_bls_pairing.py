@@ -14,6 +14,7 @@ import torch
 from chip_smoke import (
     bls_g1_points,
     bls_g2_points,
+    bls_twist_point_of_order,
     bls_twist_point_outside_subgroup,
     htc_edge_field_elements,
     htc_gx1_is_square,
@@ -23,6 +24,7 @@ from lighthouse_tpu.crypto.bls12_381 import (
     FQ2,
     G1_GEN,
     g2_clear_cofactor,
+    g2_in_subgroup,
     g2_to_bytes,
     hash_to_g2,
     pt_mul,
@@ -118,12 +120,19 @@ def test_multi_pairing_check_true_and_false():
 
 
 def test_g2_subgroup_check():
+    """Points of G2, twist points outside it, twist points of order 13 and
+    23 (the |x|-ladder meets infinity on them) and a q_inf lane, against
+    the host oracle's g2_in_subgroup."""
     rng = np.random.default_rng(23)
     inside = [to_affine(FQ2, x) for x in bls_g2_points(rng, 2)]
     outside = [bls_twist_point_outside_subgroup(rng) for _ in range(2)]
-    q = _g2_aff(inside + outside + [inside[0]])
-    q_inf = torch.tensor([False, False, False, False, True])
-    assert K4.g2_subgroup_check(q, q_inf).tolist() == [True, True, False, False, True]
+    small = [bls_twist_point_of_order(rng, 13), bls_twist_point_of_order(rng, 23)]
+    pts = inside + outside + [inside[0]] + small
+    q = _g2_aff(pts)
+    q_inf = torch.tensor([False, False, False, False, True, False, False])
+    got = K4.g2_subgroup_check(q, q_inf).tolist()
+    assert got == [True, True, False, False, True, False, False]
+    assert got == [bool(i) or g2_in_subgroup(from_affine(FQ2, a)) for a, i in zip(pts, q_inf.tolist())]
 
 
 def test_g2_clear_cofactor_matches_oracle():

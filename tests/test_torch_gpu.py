@@ -15,9 +15,11 @@ import torch
 
 from chip_smoke import (
     block_update,
+    bls_g1_point_of_order,
     bls_g1_points,
     bls_g2_points,
     bls_scalars,
+    bls_twist_point_of_order,
     bls_twist_point_outside_subgroup,
     build_deneb_state,
     epoch_sweep_inputs,
@@ -133,6 +135,40 @@ def test_bls_g2_ladder_edge_scalars_match_plain(cuda, affine):
     assert torch.equal(got, K2.scalar_mul_plain("g2", pts, k))
 
 
+@pytest.mark.parametrize("affine", [False, True])
+def test_bls_g1_ladder_edge_scalars_match_plain(cuda, affine):
+    """The warp-team G1 ladder at the edge scalars 0, 1, 2, 2^63 and
+    2^64 - 1 and 27 random ones, on Jacobian points (Z != 1) or affine
+    ones (Z = 1), with an infinity input in the last lane and a point of
+    order 3 (the team addition's P == Q, P == -Q and infinity cases) in
+    the one before, limb-equal to its plain version."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, inf, to_affine
+
+    rng = np.random.default_rng(15)
+    pts = bls_g1_points(rng, 30)
+    if affine:
+        pts = [(*to_affine(FQ, p), 1) for p in pts]
+    pts += [bls_g1_point_of_order(rng, 3), inf(FQ)]
+    k = K2.scalars_to_tensor([0, 1, 2, 2**63, 2**64 - 1] + bls_scalars(rng, 27)).to(cuda)
+    pts = _g1(pts, cuda)
+    got = _launched(K2.COUNTS, "g1_scalar_mul", lambda: K2.scalar_mul("g1", pts, k))
+    assert torch.equal(got, K2.scalar_mul_plain("g1", pts, k))
+
+
+@pytest.mark.parametrize("layout", [None, "team", "thread"])
+@pytest.mark.parametrize("n", [1, 33, 4096])
+def test_bls_g1_ladder_lanes_match_plain(cuda, n, layout):
+    """The G1 ladder at 1, 33 and 4,096 lanes (K11's shape) in the layout
+    the kernel picks by lane count and in each forced one, limb-equal to
+    its plain version."""
+    rng = np.random.default_rng(16)
+    pts = _g1(bls_g1_points(rng, min(n, 33)), cuda)
+    pts = pts.repeat(-(-n // pts.shape[0]), 1, 1)[:n].contiguous()
+    k = K2.scalars_to_tensor(bls_scalars(rng, n)).to(cuda)
+    got = _launched(K2.COUNTS, "g1_scalar_mul", lambda: K2.scalar_mul("g1", pts, k, layout=layout))
+    assert torch.equal(got, K2.scalar_mul_plain("g1", pts, k))
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_bls_segment_sum_and_affine_match_plain(cuda, group):
     """Rows with a repeated point, a point and its negation, and infinity
@@ -165,6 +201,30 @@ def test_bls_subgroup_check_matches_plain(cuda):
     ok = _launched(K4.COUNTS, "g2_subgroup_check", lambda: K4.g2_subgroup_check(q, q_inf))
     assert ok.tolist() == [True, True, True, False]
     assert torch.equal(ok, K4.g2_subgroup_check_plain(q, q_inf))
+
+
+def test_bls_subgroup_check_edge_points_match_plain(cuda):
+    """The warp-team subgroup check at 33 points: points of G2, points of
+    the twist outside it, twist points of order 13 and 23 (the |x|-ladder
+    meets infinity on them) and a q_inf lane, verdict-equal to its plain
+    version and to the host oracle."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ2, g2_in_subgroup, to_affine
+
+    rng = np.random.default_rng(17)
+    affs = [to_affine(FQ2, q) for q in bls_g2_points(rng, 33)]
+    outside = {4: bls_twist_point_outside_subgroup(rng), 11: bls_twist_point_outside_subgroup(rng)}
+    outside.update({17: bls_twist_point_of_order(rng, 13), 29: bls_twist_point_of_order(rng, 23)})
+    outside[32] = bls_twist_point_of_order(rng, 13)
+    for i, a in outside.items():
+        affs[i] = a
+    q = torch.from_numpy(K2.fq_to_limbs([v for a in affs for c in a for v in c]).reshape(-1, 2, 2, 12)).to(cuda)
+    q_inf = torch.zeros(33, dtype=torch.bool, device=cuda)
+    q_inf[21] = True
+    ok = _launched(K4.COUNTS, "g2_subgroup_check", lambda: K4.g2_subgroup_check(q, q_inf))
+    assert torch.equal(ok, K4.g2_subgroup_check_plain(q, q_inf))
+    want = [i == 21 or g2_in_subgroup((*a, FQ2.one)) for i, a in enumerate(affs)]
+    assert ok.tolist() == want
+    assert want == [i not in outside for i in range(33)]
 
 
 @pytest.mark.parametrize("m, infinity", [(1, ()), (2, ()), (3, (2,)), (33, (5,)), (65, (0, 64)), (4, "all")])

@@ -1,0 +1,84 @@
+"""K2's warp-team G1 ladder and K4's warp-team subgroup check, built as
+host C++ through the shim of lighthouse_tpu_torch.analysis.host_shim (a
+block's threads as std::threads, __syncwarp as a barrier), against their
+plain PyTorch versions on the CPU: limb for limb (the ladder), verdict for
+verdict (the check). This runs the kernels' own team code, branches and
+barriers on the CPU; the card's run is tests/test_torch_gpu.py's. Skips
+only where there is no g++.
+"""
+
+import concurrent.futures
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import (
+    bls_g1_point_of_order,
+    bls_g1_points,
+    bls_g2_points,
+    bls_scalars,
+    bls_twist_point_of_order,
+    bls_twist_point_outside_subgroup,
+)
+from lighthouse_tpu_torch.analysis import host_shim
+from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, inf, to_affine
+from lighthouse_tpu_torch.ops import bls381 as K2
+from lighthouse_tpu_torch.ops import bls381_pairing as K4
+
+
+@pytest.fixture(scope="module")
+def shim_libs(tmp_path_factory):
+    if host_shim.gxx() is None:
+        pytest.skip("needs g++")
+    out = tmp_path_factory.mktemp("host_shim")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = dict(zip(("g", "pairing"), pool.map(lambda s: host_shim.build(s, out), ("bls381_g.cu", "bls381_pairing.cu"))))
+    return {
+        "g": host_shim.load(built["g"], K2.LIB.functions),
+        "pairing": host_shim.load(built["pairing"], K4.LIB.functions),
+    }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_g1_team_ladder_matches_plain(shim_libs):
+    """8 lanes: the edge scalars 0, 1, 2, 2^63 and 2^64 - 1 on Jacobian
+    points (Z != 1), a random scalar on an affine point (Z = 1), on an
+    infinity input and on a point of order 3 (the team addition's P == Q,
+    P == -Q and infinity cases)."""
+    rng = np.random.default_rng(21)
+    pts = bls_g1_points(rng, 6)
+    pts[5] = (*to_affine(FQ, pts[5]), 1)
+    pts += [inf(FQ), bls_g1_point_of_order(rng, 3)]
+    ks = [0, 1, 2, 2**63, 2**64 - 1] + bls_scalars(rng, 3)
+    p = torch.from_numpy(K2.g1_to_limbs(pts))
+    k = K2.scalars_to_tensor(ks)
+    want = K2.scalar_mul_plain("g1", p, k)
+    for team in (1, 0):
+        out = torch.zeros_like(p)
+        lib = shim_libs["g"]
+        assert host_shim.call(lib.bls_g1_scalar_mul_layout, p.data_ptr(), k.data_ptr(), out.data_ptr(), len(ks), team, None) == 0
+        assert torch.equal(out, want), f"layout team={team}"
+
+
+def test_g2_team_subgroup_check_matches_plain(shim_libs):
+    """6 points: two in G2, one outside it, twist points of order 13 and
+    23 (the |x|-ladder meets infinity on them), and a q_inf lane."""
+    rng = np.random.default_rng(22)
+    affs = [to_affine(FQ2, q) for q in bls_g2_points(rng, 2)]
+    affs += [bls_twist_point_outside_subgroup(rng), bls_twist_point_of_order(rng, 13), bls_twist_point_of_order(rng, 23)]
+    affs += [(FQ2.one, FQ2.one)]
+    q = torch.from_numpy(K2.fq_to_limbs([v for a in affs for c in a for v in c]).reshape(-1, 2, 2, 12))
+    q_inf = torch.tensor([False] * 5 + [True])
+    ok = torch.zeros(6, dtype=torch.bool)
+    lib = shim_libs["pairing"]
+    assert host_shim.call(lib.bls_g2_subgroup_check, q.data_ptr(), q_inf.data_ptr(), ok.data_ptr(), 6, None) == 0
+    assert ok.tolist() == [True, True, False, False, False, True]
+    assert torch.equal(ok, K4.g2_subgroup_check_plain(q, q_inf))
