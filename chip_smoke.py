@@ -18,7 +18,8 @@ each, any failure ends the run with a non-zero exit code:
    hash-to-G2 with edge lanes: u = 0, a non-square g(x1), u1 = u0) equal
    to its plain version at the BLS main path's shapes, the G2 ladder on
    affine points as the verifier stages them, on Jacobian ones and at the
-   edge scalars 0, 1, 2, 2^63 and 2^64 - 1;
+   edge scalars 0, 1, 2, 2^63 and 2^64 - 1; the affine conversions also
+   over three blocks with infinity lanes and at 4,096 lanes;
    each with its time, the plain version's time and its bound; the
    epoch-sweep kernel equal to its plain version at 2^20 validators,
    in and out of the inactivity leak, with edge rows; and, on the mainnet
@@ -149,8 +150,10 @@ BLS_FQ_MULS = {
     "g2_mdbl": 13,  # 1M + 5S, an affine input
     "g2_add": 43,
     "g2_madd": 29,  # 7M + 4S, an affine addend
-    "fq_inv": 381,  # a^(p-2)
-    "fq2_inv": 385,  # the norm (2), an Fq inverse, 2 products
+    # a^(p-2), Fermat's chain, as K9 (csrc/msm.cu) inverts; the
+    # conversions to affine count their binary inversion's own work
+    # (_binary_inv_ops)
+    "fq_inv": 381,
     "subgroup_check": 1166,  # per point
     "miller_steps": 1780,  # per pair: 63 doubling steps (25), 5 addition steps (41)
     "line": 39,  # a sparse line product, 13 Fq2 products
@@ -1042,14 +1045,69 @@ def _ladder_fq_muls(scalars, group: str, affine: bool = False) -> int:
     return sum(d * (k.bit_length() - 1) + a * (bin(k).count("1") - 1) + (first if k > 1 else 0) for k in scalars if k)
 
 
-def _bound(muls: int, nbytes: int, field: str = "fq") -> dict:
+def _binary_inv_ops(a: int) -> tuple[int, int]:
+    """(32-bit multiplies, other 32-bit operations) at least of the binary
+    extended Euclid (csrc/mont_cs.cuh mont_inv_binary<12>) on the
+    Montgomery value `a` != 0, round by round as this `a` takes it: a
+    shift of u or v by k <= 31 bits is 12 operations, and its x / 2^k mod p
+    1 + 24 multiplies (m = x0 n', x + m p) and 24 operations (the shift,
+    the subtraction of p); a subtraction is 24 operations (u - v and
+    x1 - x2); then one product by R^3. No other Fq product."""
+    muls, ops = BLS_FQ_MUL_MIN_OPS, 0
+
+    def strip(w: int) -> int:
+        nonlocal muls, ops
+        while not w & 1:
+            w >>= min((w & -w).bit_length() - 1, 31)
+            muls, ops = muls + 25, ops + 36
+        return w
+
+    u, v = a, k_g.P
+    while True:
+        u, v = strip(u), strip(v)
+        if u == 1 or v == 1:
+            return muls, ops
+        if u >= v:
+            u -= v
+        else:
+            v -= u
+        ops += 24
+
+
+def _to_affine_work(group: str, pts: torch.Tensor) -> tuple[int, int, int]:
+    """The least work of converting the Jacobian `pts` to affine (derived
+    in csrc/bls381_g.cu's header): Montgomery's batch inversion over the
+    live lanes (an infinity needs none), 3 (live - 1) Fq products and one
+    binary inversion of their product D, this run's D; then a lane's z^-1,
+    z^-2, x z^-2, z^-3 and y z^-3, 4 Fq products for G1 and 15 for G2 (the
+    norm N(Z) = c0^2 + c1^2, 2; conj(Z) N^-1, 2; an Fq2 square, 2; three
+    Fq2 products, 9). Returns (Fq products, the inversion's 32-bit
+    multiplies, its other 32-bit operations)."""
+    z = k_g.fq_from_limbs(pts[:, 2].cpu().numpy())
+    d = z if group == "g1" else [(c0 * c0 + c1 * c1) % k_g.P for c0, c1 in zip(z[0::2], z[1::2])]
+    live = [v for v in d if v]
+    if not live:
+        return 0, 0, 0
+    prod = 1
+    for v in live:
+        prod = prod * v % k_g.P
+    inv_muls, inv_ops = _binary_inv_ops(prod * k_g.R_MONT % k_g.P)
+    return 3 * (len(live) - 1) + (4 if group == "g1" else 15) * len(live), inv_muls, inv_ops
+
+
+def _bound(muls: int, nbytes: int, field: str = "fq", int_muls: int = 0, int_ops: int = 0) -> dict:
     """The least time for `muls` field multiplications (Fq, or Fr with
-    field="fr") and `nbytes` of memory traffic."""
+    field="fr"), `int_muls` other 32-bit multiplies and `int_ops` other
+    32-bit operations (a binary inversion's), and `nbytes` of memory
+    traffic: the multiplies at the multiply rate, and all the operations at
+    the issue rate."""
     ops_per_mul = {"fq": BLS_FQ_MUL_MIN_OPS, "fr": FR_MUL_MIN_OPS}[field]
-    ops_s = muls * ops_per_mul / INT32_MUL_PER_S
+    mul_ops = muls * ops_per_mul + int_muls
+    ops_s = max(mul_ops / INT32_MUL_PER_S, (mul_ops + int_ops) / INT32_OPS_PER_S)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return {
         f"{field}_muls": muls,
+        **({"inv_int32_muls": int_muls, "inv_int32_ops": int_ops} if int_muls or int_ops else {}),
         "bound_ms_ops": ops_s * 1e3,
         "bound_ms_bytes": bytes_s * 1e3,
         "bound_ms": max(ops_s, bytes_s) * 1e3,
@@ -1079,7 +1137,9 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     plain version on the card, with its time, its plain version's time and
     its bound; the ladders also at their edge scalars, the G1 ladder at
     K11's 4,096 lanes in each layout and both layouts' times by lane
-    count, the subgroup check also on points it must reject."""
+    count, the subgroup check also on points it must reject, the affine
+    conversions (one batch inversion a block of 64 lanes) also over three
+    blocks with infinity lanes and at 4,096 lanes."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, G1_GEN, batch_to_affine, inf, pt_add, pt_neg, to_affine
 
     dev = torch.device("cuda")
@@ -1136,6 +1196,21 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     sub_edge_inf = torch.zeros(lanes, dtype=torch.bool, device=dev)
     sub_edge_inf[20] = True
     sub_edge_want = [i not in (3, 9, 14, 27) for i in range(lanes)]
+    # the affine conversions' edge lanes: 130 lanes over three blocks of
+    # 64, infinities (Z = 0: 1 in the block's products, (0, 0) out) at
+    # lanes 0, 16 and 129 (past the last full block) and across the whole
+    # second block, an affine point (Z = 1) at lane 1; and 4,096 lanes
+    aff_n = 130
+    aff_inf = {0, 16, aff_n - 1, *range(64, 128)}
+    g1_aff_edge = [g1[j % lanes] for j in range(aff_n)]
+    g2_aff_edge = [g2[j % (lanes + 1)] for j in range(aff_n)]
+    g1_aff_edge[1] = (*g1_aff[1], 1)
+    g2_aff_edge[1] = (*g2_aff[1], FQ2.one)
+    for j in aff_inf:
+        g1_aff_edge[j], g2_aff_edge[j] = inf(FQ), inf(FQ2)
+    g1_aff_edge_t = torch.from_numpy(k_g.g1_to_limbs(g1_aff_edge)).to(dev)
+    g2_aff_edge_t = torch.from_numpy(k_g.g2_to_limbs(g2_aff_edge)).to(dev)
+    g2_wide = g2_t.repeat(-(-wide // (lanes + 1)), 1, 1, 1)[:wide].contiguous()
     # seeded messages' field elements with u = 0 in lane 0 and a u whose
     # g(x1) is not a square in lane 1
     u_np, htc_lanes = htc_edge_field_elements(rng, lanes)
@@ -1200,16 +1275,29 @@ def phase_bls_kernel_checks(seed: int) -> dict:
         "g1_to_affine": (
             lambda: k_g.to_affine("g1", g1_t),
             lambda: k_g.to_affine_plain("g1", g1_t),
-            # one batch inversion: 3 products per further lane, 4 per lane
-            BLS_FQ_MULS["fq_inv"] + 3 * (lanes - 1) + 4 * lanes,
+            _to_affine_work("g1", g1_t),
             g1_t.numel() * W * 5 // 3,
         ),
         "g2_to_affine": (
             lambda: k_g.to_affine("g2", g2_t),
             lambda: k_g.to_affine_plain("g2", g2_t),
-            BLS_FQ_MULS["fq2_inv"] + 9 * lanes + 11 * (lanes + 1),
+            _to_affine_work("g2", g2_t),
             g2_t.numel() * W * 5 // 3,
         ),
+        **{
+            f"{group}_to_affine[{tag}]": (
+                lambda group=group, t=t: k_g.to_affine(group, t),
+                lambda group=group, t=t: k_g.to_affine_plain(group, t),
+                _to_affine_work(group, t),
+                t.numel() * W * 5 // 3,
+            )
+            for group, tag, t in (
+                ("g1", "edge", g1_aff_edge_t),
+                ("g2", "edge", g2_aff_edge_t),
+                ("g1", wide, g1_wide),
+                ("g2", wide, g2_wide),
+            )
+        },
         "g2_subgroup_check": (
             lambda: k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes]),
             lambda: k_pair.g2_subgroup_check_plain(q_aff[:lanes], no_inf[:lanes]),
@@ -1257,6 +1345,8 @@ def phase_bls_kernel_checks(seed: int) -> dict:
         "kernels": {},
     }
     for name, (kernel, plain, fq_muls, nbytes) in cases.items():
+        # a conversion's work: (Fq products, its inversion's 32-bit work)
+        fq_muls, *inv_work = fq_muls if isinstance(fq_muls, tuple) else (fq_muls,)
         got = kernel()
         want, plain_ms = _plain_ms(plain)
         torch.cuda.synchronize()
@@ -1271,7 +1361,7 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": None,
-            **_bound(fq_muls, nbytes),
+            **_bound(fq_muls, nbytes, "fq", *inv_work),
         }
     # the stage values the checks above used are themselves right
     sub = k_pair.g2_subgroup_check(q_aff[:lanes], no_inf[:lanes])
@@ -1279,6 +1369,9 @@ def phase_bls_kernel_checks(seed: int) -> dict:
         raise AssertionError("g2_subgroup_check rejected subgroup points")
     if k_pair.g2_subgroup_check(sub_edge_t, sub_edge_inf).tolist() != sub_edge_want:
         raise AssertionError("g2_subgroup_check's verdicts on the edge points are not the expected ones")
+    for group, t in (("g1", g1_aff_edge_t), ("g2", g2_aff_edge_t)):
+        if k_g.to_affine(group, t)[sorted(aff_inf)].any():
+            raise AssertionError(f"{group}_to_affine: an infinity lane is not (0, 0)")
     # the G1 ladder's two layouts by lane count: where the team's warp a
     # lane stops paying (bls_g1_scalar_mul's G1_TEAM_MAX_LANES)
     out["g1_scalar_mul_layouts_ms"] = {
@@ -1292,7 +1385,7 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     }
     out["registers"] = {
         "bls381_htc.cu": _ptxas_of(k_htc.LIB, "hash_to_g2"),
-        "bls381_g.cu": _ptxas_of(k_g.LIB, "g1_ladder", "g2_ladder", "scalar_mul_kernel"),
+        "bls381_g.cu": _ptxas_of(k_g.LIB, "g1_ladder", "g2_ladder", "scalar_mul_kernel", "to_affine"),
         "bls381_pairing.cu": _ptxas_of(k_pair.LIB, "subgroup_check"),
     }
     emit(out)
@@ -1551,7 +1644,7 @@ def _profile_block(fn) -> dict:
         raise AssertionError("the profiled block verify rejected the valid block")
     by_name = _device_ms_by_name(prof)
     device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
     return {
         "wall_s": wall,
         "device_kernel_ms": device_ms if by_name else None,
@@ -2974,6 +3067,15 @@ def main(argv=None) -> int:
                     **(
                         {"ms_z_not_1": bls_checks["kernels"]["g2_scalar_mul[z!=1]"]["ms"]}
                         if name == "g2_scalar_mul"
+                        else {}
+                    ),
+                    # over three blocks with infinity lanes; 4,096 lanes
+                    **(
+                        {
+                            "ms_edge": bls_checks["kernels"][f"{name}[edge]"]["ms"],
+                            f"ms_{RLC_POINTS}": bls_checks["kernels"][f"{name}[{RLC_POINTS}]"]["ms"],
+                        }
+                        if name.endswith("_to_affine")
                         else {}
                     ),
                     # K11's 4,096 lanes, in each layout

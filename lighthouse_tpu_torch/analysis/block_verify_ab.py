@@ -7,9 +7,9 @@ signature sets through the `cuda` backend, signatures decompressed in
 each, and one profiled verify (`phase_bls_main_path`). The runs go A, B,
 B, A, so that a drift of the card or the host over the call weighs on
 both. Prints one JSON object: the card's nvidia-smi line, per run its
-checkout, median verify seconds, the five verifies and the profiled
-verify's kernel milliseconds, and per checkout the mean of its two
-medians.
+checkout, median verify seconds, the five verifies, the profiled
+verify's kernel milliseconds and its kernels by name (the 20 that take
+the most), and per checkout the mean of its two medians.
 
     python3 -m lighthouse_tpu_torch.analysis.block_verify_ab A_DIR B_DIR [--out DIR] [--seed N]
 
@@ -75,6 +75,7 @@ def main(argv=None) -> int:
                 "verify_median_s": line["verify_median_s"],
                 "verify_s": line["verify_s"],
                 "profiled_kernel_ms": line["profile"]["device_kernel_ms"],
+                "profiled_kernels_ms": line["profile"]["kernels_ms"],
             }
         )
     mean = {

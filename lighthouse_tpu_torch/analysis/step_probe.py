@@ -2,15 +2,22 @@
 
 Times, with `clock64` on one warp of one block, the steps that K2's G2
 ladder, K4's subgroup check, K5's team rounds (csrc/g2_team.cuh), K2's G1
-ladder (csrc/g1_team.cuh) and K8's quotient (csrc/kzg_fr.cu) are made
-of: an Fq product (out of line, `fq_mul1`, and inlined, `fq_mulx`), an Fq
+ladder (csrc/g1_team.cuh), K8's quotient (csrc/kzg_fr.cu) and K2's
+conversions to affine (csrc/bls381_g.cu) are made of: an Fq product (out
+of line, `fq_mul1`, and inlined, `fq_mulx`: `mont_mul_cs<12>`), an Fq
 addition (`fp_add`), a `__syncwarp`, a team round of three Fq2 products
 on plain operands, a G2 team doubling, a general and a mixed G2 team
 addition, an Fr product (`fr_mulx`), one Fr binary inversion
-(`mont_inv_binary<8>`, on one thread, as the kernels run it), and a G1
-team doubling and addition.
+(`mont_inv_binary<8>`, on one thread, as the kernels run it), a G1 team
+doubling and addition, two independent inlined Fq products side by side
+(a level of the conversions' prefix and suffix scan) with one product
+alone in the same kernel, and one Fq binary inversion (`fp_inv_binary`,
+on one thread, as the conversions and K4's final exponentiation run it).
 Each is the mean over a loop of dependent repetitions, in SM clock
-cycles, read from lane 0.
+cycles, read from lane 0. The first twelve share one kernel, unchanged
+as steps are added, so that their readings stay comparable from one
+version to the next; each step added after them is a kernel of its own,
+which changes no other step's code.
 
     python3 -m lighthouse_tpu_torch.analysis.step_probe [--out DIR]
 
@@ -37,7 +44,7 @@ from ..ops.cuda_build import BUILD_DIR, CSRC, nvcc
 
 STEPS = (
     "fq_mul1", "fq_mulx", "fp_add", "syncwarp", "team_round3", "team_dbl", "team_add", "team_madd", "fr_mulx",
-    "fr_inv_binary", "g1_team_dbl", "g1_team_add",
+    "fr_inv_binary", "g1_team_dbl", "g1_team_add", "fq_mulx_pair", "fq_inv_binary", "fq_mulx_alone",
 )
 
 _SOURCE = r"""
@@ -101,9 +108,46 @@ step_probe_kernel(const long long* pts, const long long* g1, const uint32_t* frv
   if (lane == 0) sink[0] = (long long)a.v[0] + c.v[0] + x.v[0] + inv.v[0] + pt[2].x.c0.v[0] + pt1[2].x.v[0];
 }
 
+// The steps added later, each a kernel of its own, so that they change no
+// reading of the kernel above (the earlier versions' yardstick)
+// a level of the conversions' scan: two independent products, and one
+// product alone in the same kernel beside it
+__global__ void __launch_bounds__(32)
+step_scan_kernel(const long long* pts, long long* sink, long long* clk) {
+  const int lane = threadIdx.x;
+  fp a, b, e, g;
+  fp_ld(a, pts);
+  fp_ld(b, pts + 24);
+  fp_ld(e, pts + 36);
+  fp_ld(g, pts + 72);
+  TIME(14, REPS, fq_mulx(e, e, b));
+  TIME(12, REPS, {
+    fq_mulx(a, a, b);
+    fq_mulx(e, e, g);
+  });
+  if (lane == 0) sink[1] = (long long)a.v[0] + e.v[0];
+}
+
+// the Fq inversion on one thread: the ten nonzero coordinates of pts (the
+// affine point's Z is 1 + 0u)
+__global__ void __launch_bounds__(32)
+step_fq_inv_kernel(const long long* pts, long long* sink, long long* clk) {
+  const int lane = threadIdx.x;
+  uint32_t acc = 0;
+  TIME(13, 10, if (lane == 0) {
+    fp f;
+    fp_ld(f, pts + 12 * it);
+    fp_inv_binary(f, f);
+    acc ^= f.v[0];
+  });
+  if (lane == 0) sink[2] = acc;
+}
+
 extern "C" int step_probe(const long long* pts, const long long* g1, const uint32_t* frv, long long* sink,
                           long long* clk) {
   step_probe_kernel<<<1, 32>>>(pts, g1, frv, sink, clk);
+  step_scan_kernel<<<1, 32>>>(pts, sink, clk);
+  step_fq_inv_kernel<<<1, 32>>>(pts, sink, clk);
   return (int)cudaGetLastError();
 }
 """
@@ -140,7 +184,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    sink = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(3, dtype=torch.int64, device="cuda")
     runs = []
     for _ in range(2):
         clk = torch.zeros(len(STEPS), dtype=torch.int64, device="cuda")

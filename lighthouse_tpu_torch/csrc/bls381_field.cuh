@@ -32,11 +32,16 @@
 // The code is plain C++ for one thread: a lane's state lives in
 // registers and local memory. The one-thread kernels run a thread per
 // lane; the team kernels (g1_team.cuh, g2_team.cuh, K4's Fq12 rounds) use
-// it for a lane's share of a round.
+// it for a lane's share of a round. The Fq inverse of K4's final
+// exponentiation and K2's conversions to affine is fp_inv_binary
+// (mont_cs.cuh's binary extended Euclid); the Fermat fp_inv serves K9
+// (msm.cu).
 // Outside nvcc (no __CUDACC__) the same functions compile as ordinary
 // host C++.
 #pragma once
 #include <stdint.h>
+
+#include "mont_cs.cuh"
 
 #ifdef __CUDACC__
 #define DEV __device__ __forceinline__
@@ -257,6 +262,21 @@ DEVNI void fp_pow(fp& r, const fp& a, const uint32_t* e, int nbits) {
 
 DEV void fp_inv(fp& r, const fp& a) { fp_pow(r, a, BLS_P_MINUS_2, 381); }  // 0 -> 0
 
+// R^3 mod p, mont_inv_binary's last factor
+CONSTMEM uint32_t BLS_R3[12] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
+                                0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
+
+// a^-1 R for a Montgomery a = a R by the binary extended Euclidean
+// algorithm (mont_cs.cuh; variable time: the kernels invert public values),
+// 0 -> 0: at most 2 * 381 short steps of shifts and subtractions, against
+// fp_inv's 381 squarings and ~190 products in one dependent chain. K4's
+// final exponentiation and K2's batch conversion to affine run it.
+DEV void fp_inv_binary(fp& r, const fp& a) {
+  fp r3;
+  fp_const(r3, BLS_R3);
+  mont_inv_binary<12>(r.v, a.v, BLS_P, BLS_NINV, r3.v);
+}
+
 // ---------------------------------------------------------------------------
 // Fq2 (u^2 = -1)
 // ---------------------------------------------------------------------------
@@ -301,17 +321,6 @@ DEV void fp2_mul_xi(fp2& r, const fp2& a) {
   r.c1 = t1;
 }
 
-DEVNI void fp2_inv(fp2& r, const fp2& a) {
-  fp n, t;
-  fp_sqr(n, a.c0);
-  fp_sqr(t, a.c1);
-  fp_add(n, n, t);
-  fp_inv(n, n);
-  fp_mul(r.c0, a.c0, n);
-  fp_mul(t, a.c1, n);
-  fp_neg(r.c1, t);
-}
-
 // ---------------------------------------------------------------------------
 // Jacobian points over Fq and Fq2 (curve.py pt_double / pt_add)
 // ---------------------------------------------------------------------------
@@ -334,8 +343,6 @@ DEV void f_zero(fp& a) { fp_zero(a); }
 DEV void f_zero(fp2& a) { fp2_zero(a); }
 DEV void f_neg(fp& r, const fp& a) { fp_neg(r, a); }
 DEV void f_neg(fp2& r, const fp2& a) { fp2_neg(r, a); }
-DEV void f_inv(fp& r, const fp& a) { fp_inv(r, a); }
-DEV void f_inv(fp2& r, const fp2& a) { fp2_inv(r, a); }
 
 template <class F> struct jac { F x, y, z; };
 
@@ -401,16 +408,6 @@ template <class F> DEVNI void pt_mul_u64(jac<F>& r, const jac<F>& p, unsigned lo
     if ((k >> i) & 1) pt_add(acc, acc, p);
   }
   r = acc;
-}
-
-// affine (x, y) = (X/Z^2, Y/Z^3); an infinity gives (0, 0)
-template <class F> DEVNI void pt_to_affine(F& ax, F& ay, const jac<F>& p) {
-  F zi, zi2, t;
-  f_inv(zi, p.z);
-  f_sqr(zi2, zi);
-  f_mul(ax, p.x, zi2);
-  f_mul(t, zi2, zi);
-  f_mul(ay, p.y, t);
 }
 
 // ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@
 //   * bls381.py:492 g1_sum_reduce and bls381_verify.py:66/103/108
 //     _tree_reduce_scan / g1_segment_sum / g2_sum_reduce (tree sums over a
 //     padded committee axis);
-//   * bls381_verify.py:122/138 g1_jac_to_affine / g2_jac_to_affine;
+//   * bls381_verify.py:122/138 g1_jac_to_affine / g2_jac_to_affine (a
+//     Fermat inverse a lane there; one batch inversion a block here);
 //   * msm.py:172 g1_msm_ladder's per-point ladders (K9 ladder): 256-bit
 //     scalars, batch_g1_scalar_mul over NBITS = 256 (the tree sum after
 //     them is g1_segment_sum).
@@ -39,6 +40,29 @@
 // count: the crossover lies between 768 and 1,024 lanes. The verifier's
 // chunks (<= 32 lanes) take the team layout, K11's 4,096 lanes the thread
 // one.
+// The conversions to affine (bls_g1_to_affine, bls_g2_to_affine) take
+// Montgomery's batch inversion, one block of LANES_PER_BLOCK (64) threads
+// per 64 lanes, a lane a thread: the verifier's 32 and 33 lanes are one
+// block and one inversion, and larger n runs one inversion a block, the
+// blocks side by side. Each lane forms an Fq value d_i: Z_i for G1, the
+// norm N(Z_i) = Z_i.c0^2 + Z_i.c1^2 for G2 (Z^-1 = conj(Z) / N(Z); with
+// -1 a non-residue, N(Z) = 0 only at Z = 0), so the scan and the inversion
+// run in Fq for both groups. An infinity lane (d_i = 0) and each lane past
+// n counts as 1 in the products and writes (0, 0) (past n: nothing), as
+// the plain version's inverse of 0 is 0: no other lane is spoiled. The
+// block's inclusive prefix and suffix products of the d_i are a
+// Hillis-Steele scan in shared memory, log2(64) = 6 levels of two
+// independent products on mont_mul_cs<12> (K8's quotient, kzg_fr.cu, with
+// 12 limbs); one thread inverts the block's product D with fp_inv_binary
+// (the binary extended Euclid, no product); lane i then takes
+// d_i^-1 = prefix_{i-1} suffix_{i+1} D^-1 and z^-1 = d_i^-1 (G1) or
+// conj(Z_i) d_i^-1 (G2, 2 Fq products), then z^-2, x z^-2, z^-3, y z^-3.
+// Montgomery factors: the d_i are Montgomery values d_i R, every product
+// of two values a R, b R is a b R, and mont_inv_binary returns D^-1 R for
+// D R, so each lane's d_i^-1 R, z^-1 and coordinates are Montgomery
+// values. Every product leaves a fully reduced value and each inverse is
+// unique, so the order of operations changes no limb: the output equals
+// the plain version's (ops/bls381.py to_affine_plain) limb for limb.
 // A segment sum is one block per segment, a tree over
 // the (power-of-two) padded axis in a global scratch buffer, one level per
 // __syncthreads(); the tree pairs (0,1), (2,3), ... and then their sums, as
@@ -47,7 +71,9 @@
 // What bounds it: 32-bit multiply-adds. The bound counts the least Fq
 // multiplications the function needs, from the cheapest known formulas,
 // whatever this kernel does (an Fq2 product is 3 Fq ones, a square 2; a
-// power to a fixed e at the floor of any addition chain, ceil(log2 e)):
+// power to a fixed e at the floor of any addition chain, ceil(log2 e);
+// an inverse, where the kernel takes the binary extended Euclid, as that
+// Euclid's own 32-bit operations on this run's value):
 // a Jacobian doubling (a = 0) is 2M + 5S, 1M + 5S on an affine input; an
 // addition 11M + 5S, 7M + 4S with an affine addend. In Fq that is 7, 6,
 // 16 and 11; in Fq2 16, 13, 43 and 29.
@@ -59,10 +85,18 @@
 //   * segment sum over k affine points (the pubkeys): k - 1 mixed
 //     additions (11); over k Jacobian points (the G2 sum): k - 1 additions
 //     (43).
-//   * to affine over n lanes: one batch inversion (Montgomery's trick:
-//     an inverse, 381 Fq products for a^(p-2), and 3(n - 1) products), then
-//     z^-2, z^-3, x z^-2, y z^-3 per lane: G1 381 + 3(n - 1) + 4n, G2 385
-//     (the norm, an Fq inverse, 2 products) + 9(n - 1) + 11n.
+//   * to affine over n live lanes (an infinity needs nothing): one batch
+//     inversion in Fq (Montgomery's trick: 3(n - 1) products and one
+//     inverse of the product D), then z^-1, z^-2, x z^-2, z^-3, y z^-3 per
+//     lane: G1 3(n - 1) + 4n; G2 3(n - 1) + 15n (the norm 2, conj(Z) N^-1
+//     2, an Fq2 square 2, three Fq2 products 9). The inverse is counted as
+//     the binary Euclid does it on this run's D (chip_smoke._binary_inv_ops):
+//     a round's shift of u or v by up to 31 bits 12 operations and x / 2^k
+//     mod p 25 multiplies and 24 operations, a subtraction round 24
+//     operations, and one product by R^3 (no other product: a^(p-2), 381
+//     products, would count a chain this kernel does not run). Its
+//     multiplies are held to the multiply rate and all its operations to
+//     the issue rate, 128 a clock an SM.
 //   * 256-bit ladder (bls_g1_scalar_mul_wide): one thread per point, all
 //     256 bits from the canonical infinity, each a doubling and an
 //     addition whose result is kept only where the bit is set (the JAX
@@ -209,17 +243,87 @@ segment_sum_kernel(const long long* pts, long long* buf, long long* out, int k) 
   }
 }
 
-// pts [n, 3, w] -> out [n, 2, w]
+// d = Z (G1) or N(Z) = Z.c0^2 + Z.c1^2 (G2): the lane's value in the scan
+DEV void aff_denom(fp& d, const fp& z) { d = z; }
+DEV void aff_denom(fp& d, const fp2& z) {
+  fp t;
+  fq_mulx(d, z.c0, z.c0);
+  fq_mulx(t, z.c1, z.c1);
+  fp_add(d, d, t);
+}
+// z^-1 from d^-1: itself (G1), conj(Z) / N(Z) (G2)
+DEV void aff_zinv(fp& zi, const fp&, const fp& dinv) { zi = dinv; }
+DEV void aff_zinv(fp2& zi, const fp2& z, const fp& dinv) {
+  fp t;
+  fq_mulx(zi.c0, z.c0, dinv);
+  fq_mulx(t, z.c1, dinv);
+  fp_neg(zi.c1, t);
+}
+
+// pts [n, 3, w] -> out [n, 2, w]: a lane a thread, one batch inversion a
+// block (see the header)
 template <class F>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 to_affine_kernel(const long long* pts, long long* out, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ fp spre[LANES_PER_BLOCK], ssuf[LANES_PER_BLOCK];
+  __shared__ fp sinv;
+  const int t = threadIdx.x;
+  const long long i = blockIdx.x * (long long)LANES_PER_BLOCK + t;
   const int w = limbs<F>::n;
-  jac<F> p;
+  fp one, d;
+  fp_one(one);
+  d = one;
+  F z;
+  bool inf = true;  // no lane, or Z = 0: 1 in the products, (0, 0) out
+  if (i < n) {
+    f_ld(z, pts + i * 3 * w + 2 * w);
+    aff_denom(d, z);
+    inf = fp_is_zero(d);
+    if (inf) d = one;
+  }
+  // inclusive prefix and suffix products of the block's d_i; a lane with
+  // no partner at a level multiplies by 1, so both products run on every
+  // lane without a branch
+  fp pre = d, suf = d;
+  spre[t] = d;
+  ssuf[t] = d;
+  __syncthreads();
+  for (int h = 1; h < LANES_PER_BLOCK; h <<= 1) {
+    const fp a = t >= h ? spre[t - h] : one;
+    const fp b = t + h < LANES_PER_BLOCK ? ssuf[t + h] : one;
+    __syncthreads();
+    fq_mulx(pre, pre, a);
+    fq_mulx(suf, suf, b);
+    spre[t] = pre;
+    ssuf[t] = suf;
+    __syncthreads();
+  }
+  // the other lanes' product: D / d_i
+  fp rest;
+  {
+    const fp a = t > 0 ? spre[t - 1] : one;
+    const fp b = t + 1 < LANES_PER_BLOCK ? ssuf[t + 1] : one;
+    fq_mulx(rest, a, b);
+  }
+  if (t == 0) fp_inv_binary(sinv, spre[LANES_PER_BLOCK - 1]);  // D^-1 R
+  __syncthreads();
+  if (i >= n) return;
   F ax, ay;
-  pt_ld(p, pts + i * 3 * w);
-  pt_to_affine(ax, ay, p);
+  if (inf) {
+    f_zero(ax);
+    f_zero(ay);
+  } else {
+    F x, y, zi, zi2, zi3;
+    fp dinv;
+    fq_mulx(dinv, rest, sinv);  // d_i^-1
+    aff_zinv(zi, z, dinv);
+    f_ld(x, pts + i * 3 * w);
+    f_ld(y, pts + i * 3 * w + w);
+    fx_sqr(zi2, zi);
+    fx_mul(ax, x, zi2);
+    fx_mul(zi3, zi2, zi);
+    fx_mul(ay, y, zi3);
+  }
   f_st(out + i * 2 * w, ax);
   f_st(out + i * 2 * w + w, ay);
 }

@@ -43,7 +43,8 @@
 //      additions, every step the formula of curve.py's pt_double and
 //      pt_add, so the output equals the plain version limb for limb.
 // Products are mont_mul_cs (mont_cs.cuh) on registers, not the shared
-// fp_mul; a team lane's product is one out-of-line copy (fq_mul1).
+// fp_mul; a team lane's product is one out-of-line copy (fq_mul1); the
+// map's Fq2 products are g2_team.cuh's fq2_mulx / fq2_sqrx.
 // Longest dependent chain: a map (two powers, ~2 x 470 products, and ~40
 // more), then ~480 team rounds of one product each.
 //
@@ -74,33 +75,6 @@ CONSTMEM uint32_t BLS_SQRT_M5[12] = {0x7f49f0bau, 0xcd94f740u, 0xa6c4f72du, 0xe4
 // (p - 3) / 4 (plain); BLS_SQRT_EXP is (p + 1) / 4
 CONSTMEM uint32_t BLS_SQRT_EXP_M1[12] = {0xffffeaaau, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u,
                                          0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
-
-// ---------------------------------------------------------------------------
-// Fq2 on the column-sum product (Fq's, fq_mulx and fq_mul1: g2_team.cuh)
-// ---------------------------------------------------------------------------
-
-// Karatsuba: three independent products, interleaved by the compiler
-DEVNI void fq2_mulx(fp2& r, const fp2& a, const fp2& b) {
-  fp t0, t1, x, sa, sb;
-  fp_add(sa, a.c0, a.c1);
-  fp_add(sb, b.c0, b.c1);
-  fq_mulx(t0, a.c0, b.c0);
-  fq_mulx(t1, a.c1, b.c1);
-  fq_mulx(x, sa, sb);
-  fp_sub(r.c0, t0, t1);
-  fp_sub(x, x, t0);
-  fp_sub(r.c1, x, t1);
-}
-
-DEVNI void fq2_sqrx(fp2& r, const fp2& a) {
-  fp s, d, t, c0;
-  fp_add(s, a.c0, a.c1);
-  fp_sub(d, a.c0, a.c1);
-  fq_mulx(c0, s, d);
-  fq_mulx(t, a.c0, a.c1);
-  r.c0 = c0;
-  fp_add(r.c1, t, t);
-}
 
 DEV void fq_sel(fp& r, bool c, const fp& a, const fp& b) { UNROLL for (int j = 0; j < 12; j++) r.v[j] = c ? a.v[j] : b.v[j]; }
 DEV void fq2_sel(fp2& r, bool c, const fp2& a, const fp2& b) { fq_sel(r.c0, c, a.c0, b.c0); fq_sel(r.c1, c, a.c1, b.c1); }

@@ -322,20 +322,6 @@ DEVNI void team_cyc_pow(const Team& tm, fp12& r, const fp12& f, unsigned long lo
   }
 }
 
-// R^3 mod p, mont_inv_binary's last factor
-CONSTMEM uint32_t BLS_R3[12] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
-                                0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
-
-// a^-1 in Montgomery form by the binary extended Euclidean algorithm
-// (mont_cs.cuh; variable time: the pairing's inputs are public), 0 -> 0:
-// at most 2 * 381 short steps of shifts and subtractions, against fp_inv's
-// 381 squarings and ~190 products in one dependent chain.
-DEV void fp_inv_binary(fp& r, const fp& a) {
-  fp r3;
-  fp_const(r3, BLS_R3);
-  mont_inv_binary<12>(r.v, a.v, BLS_P, BLS_NINV, r3.v);
-}
-
 struct InvMem { fp6 w, c; fp2 d; };
 
 // r = a^-1 (fields.py f12_inv; r may be a): t = a0^2 - v a1^2, t^-1 by f6_inv,

@@ -26,7 +26,7 @@
 #include "mont_cs.cuh"
 
 // ---------------------------------------------------------------------------
-// Fq on the column-sum product
+// Fq and Fq2 on the column-sum product
 // ---------------------------------------------------------------------------
 
 DEV void fq_mulx(fp& r, const fp& a, const fp& b) { mont_mul_cs<12>(r.v, a.v, b.v, BLS_P, BLS_NINV); }
@@ -34,6 +34,36 @@ DEV void fq_mulx(fp& r, const fp& a, const fp& b) { mont_mul_cs<12>(r.v, a.v, b.
 // one out-of-line copy for the products that stand alone (a team lane's,
 // the map's single ones): the inlined copies stay where they interleave
 DEVNI void fq_mul1(fp& r, const fp& a, const fp& b) { fq_mulx(r, a, b); }
+
+// Karatsuba: three independent products, interleaved by the compiler
+DEVNI void fq2_mulx(fp2& r, const fp2& a, const fp2& b) {
+  fp t0, t1, x, sa, sb;
+  fp_add(sa, a.c0, a.c1);
+  fp_add(sb, b.c0, b.c1);
+  fq_mulx(t0, a.c0, b.c0);
+  fq_mulx(t1, a.c1, b.c1);
+  fq_mulx(x, sa, sb);
+  fp_sub(r.c0, t0, t1);
+  fp_sub(x, x, t0);
+  fp_sub(r.c1, x, t1);
+}
+
+DEVNI void fq2_sqrx(fp2& r, const fp2& a) {
+  fp s, d, t, c0;
+  fp_add(s, a.c0, a.c1);
+  fp_sub(d, a.c0, a.c1);
+  fq_mulx(c0, s, d);
+  fq_mulx(t, a.c0, a.c1);
+  r.c0 = c0;
+  fp_add(r.c1, t, t);
+}
+
+// a product and a square over Fq or Fq2 on the column-sum product, for
+// code generic in the field (bls381_field.cuh's f_mul/f_sqr run fp_mul)
+DEV void fx_mul(fp& r, const fp& a, const fp& b) { fq_mulx(r, a, b); }
+DEV void fx_mul(fp2& r, const fp2& a, const fp2& b) { fq2_mulx(r, a, b); }
+DEV void fx_sqr(fp& r, const fp& a) { fq_mulx(r, a, a); }
+DEV void fx_sqr(fp2& r, const fp2& a) { fq2_sqrx(r, a); }
 
 // ---------------------------------------------------------------------------
 // Team rounds on a warp: points and named values in shared memory

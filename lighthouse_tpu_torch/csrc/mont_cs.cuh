@@ -1,23 +1,24 @@
 // A Montgomery product for the kernels redesigned for latency: K8's
-// barycentric evaluation (kzg_fr.cu) and K5's hash-to-G2 (bls381_htc.cu).
-// The shared one-thread products fp_mul (bls381_field.cuh) and fr_mul
-// (fr.cuh) stay as they are for the other kernels; moving those to this
-// product is later work. Below it, the binary extended Euclidean inverse
-// over N limbs, one template for Fr (K8) and Fq (K4's final
-// exponentiation).
+// kernels (kzg_fr.cu), K5's hash-to-G2 (bls381_htc.cu), the team kernels
+// (g1_team.cuh, g2_team.cuh) and K2's conversions to affine
+// (bls381_g.cu). The shared one-thread product fp_mul (bls381_field.cuh)
+// stays as it is for the other kernels; moving those to this product is
+// later work. Below it, the binary extended Euclidean inverse over N
+// limbs, one template for Fr (K8) and Fq (bls381_field.cuh fp_inv_binary:
+// K4's final exponentiation, K2's conversions to affine).
 //
 // mont_mul_cs<N> over N 32-bit limbs, inlined, on values in registers.
 // The 2N-word product a * b is kept as column sums: each column a 64-bit
 // sum of the low and high halves of its limb products, independent of the
 // other columns, so a thread's N^2 multiplies overlap instead of waiting
-// on a carry from one limb to the next (fp_mul / fr_mul carry limb by
-// limb). Montgomery's reduction then runs over the columns: step i takes
+// on a carry from one limb to the next (fp_mul carries limb by limb).
+// Montgomery's reduction then runs over the columns: step i takes
 // m = col_i * n' mod 2^32, adds m * mod into columns i..i+N and moves
 // col_i's carry into col_{i+1}; only that carry and m are serial. A column
 // takes at most 4N halves of 32 bits and one carry, so it stays far below
 // 2^64. Operands must be reduced (< mod); the result is below 2 mod before
 // one conditional subtraction, fully reduced and equal limb for limb to
-// fp_mul / fr_mul. Plain C++: the same code runs on the host.
+// fp_mul. Plain C++: the same code runs on the host.
 #pragma once
 #include <stdint.h>
 

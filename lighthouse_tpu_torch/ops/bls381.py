@@ -14,7 +14,12 @@ team code of ``csrc/g2_team.cuh`` (K5's), with a mixed addition where the
 point is affine (Z = 1), which gives the same coordinates as the general
 one; the G1 ladder runs a warp per lane on ``csrc/g1_team.cuh`` up to
 768 lanes and a thread per lane above (the measured crossover, in
-``bls381_g.cu``'s header); the other G1 kernels run a thread per lane.
+``bls381_g.cu``'s header). The conversions to affine run Montgomery's
+batch inversion, a lane a thread and a block of 64 lanes: prefix and
+suffix products of the lanes' Z (G1) or N(Z) (G2) and one binary
+extended-Euclid inverse a block, infinity lanes counted as 1 and written
+as (0, 0). The segment sums run a block per segment and the 256-bit
+ladder a thread per lane.
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;
@@ -594,7 +599,10 @@ def tree_row(pts: torch.Tensor) -> torch.Tensor:
 
 
 def to_affine(group: str, pts: torch.Tensor) -> torch.Tensor:
-    """[n, 3, coord] Jacobian -> [n, 2, coord] affine ((0, 0) for infinity)."""
+    """[n, 3, coord] Jacobian -> [n, 2, coord] affine ((0, 0) for infinity).
+    The kernel inverts once a block of 64 lanes (Montgomery's batch
+    inversion, csrc/bls381_g.cu); its output equals the plain version's,
+    which inverts each lane's Z, limb for limb."""
     check_limbs(pts, (3, *_coord(group)), "pts")
     if pts.device.type == "cpu":
         return to_affine_plain(group, pts)

@@ -191,6 +191,33 @@ def test_bls_segment_sum_and_affine_match_plain(cuda, group):
     assert torch.equal(aff, K2.to_affine_plain(group, got))
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("n", [1, 32, 33, 64, 65, 130, 4096])
+def test_bls_to_affine_lanes_match_plain(cuda, group, n):
+    """The batch conversion (one inversion a block of 64 lanes) at 1 to
+    4,096 lanes: Jacobian points (Z != 1), an affine one (Z = 1) in lane
+    1, infinity lanes at the first, middle and last lane (past n = 64 the
+    last lies past the last full block), and past 128 lanes a whole block
+    of infinities; limb-equal to the plain version, infinities (0, 0)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, inf, to_affine
+
+    F = FQ if group == "g1" else FQ2
+    rng = np.random.default_rng(17)
+    pts = (bls_g1_points if group == "g1" else bls_g2_points)(rng, min(n, 33))
+    pts = (pts * -(-n // len(pts)))[:n]
+    infinity = set()
+    if n > 1:
+        pts[1] = (*to_affine(F, pts[1]), F.one)
+        infinity = {0, n // 2, n - 1} | (set(range(64, 128)) if n > 128 else set())
+    for j in infinity:
+        pts[j] = inf(F)
+    p = (_g1 if group == "g1" else _g2)(pts, cuda)
+    got = _launched(K2.COUNTS, f"{group}_to_affine", lambda: K2.to_affine(group, p))
+    assert torch.equal(got, K2.to_affine_plain(group, p))
+    for j in infinity:
+        assert not bool(got[j].any()), f"infinity lane {j} is not (0, 0)"
+
+
 def test_bls_subgroup_check_matches_plain(cuda):
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ2, to_affine
 

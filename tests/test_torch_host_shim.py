@@ -1,10 +1,11 @@
-"""K2's warp-team G1 ladder and K4's warp-team subgroup check, built as
-host C++ through the shim of lighthouse_tpu_torch.analysis.host_shim (a
-block's threads as std::threads, __syncwarp as a barrier), against their
-plain PyTorch versions on the CPU: limb for limb (the ladder), verdict for
-verdict (the check). This runs the kernels' own team code, branches and
-barriers on the CPU; the card's run is tests/test_torch_gpu.py's. Skips
-only where there is no g++.
+"""K2's warp-team G1 ladder, K2's batch conversions to affine and K4's
+warp-team subgroup check, built as host C++ through the shim of
+lighthouse_tpu_torch.analysis.host_shim (a block's threads as
+std::threads, __syncwarp and __syncthreads as barriers), against their
+plain PyTorch versions on the CPU: limb for limb (the ladder, the
+conversions), verdict for verdict (the check). This runs the kernels' own
+team and block code, branches and barriers on the CPU; the card's run is
+tests/test_torch_gpu.py's. Skips only where there is no g++.
 """
 
 import concurrent.futures
@@ -66,6 +67,40 @@ def test_g1_team_ladder_matches_plain(shim_libs):
         lib = shim_libs["g"]
         assert host_shim.call(lib.bls_g1_scalar_mul_layout, p.data_ptr(), k.data_ptr(), out.data_ptr(), len(ks), team, None) == 0
         assert torch.equal(out, want), f"layout team={team}"
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize(
+    "n, infinity",
+    [
+        (1, ()),
+        # one block: infinity lanes at its first, middle and last lane
+        (33, (0, 16, 32)),
+        # three blocks of 64 lanes, the second all infinity, the third
+        # two lanes long
+        (130, (0, *range(64, 128))),
+    ],
+)
+def test_to_affine_batch_inversion_matches_plain(shim_libs, group, n, infinity):
+    """The batch conversion (one inversion a block of 64 lanes) on
+    Jacobian points (Z != 1), with infinity lanes (Z = 0: 1 in the
+    block's products, (0, 0) out) and, past one lane, an affine point
+    (Z = 1), limb-equal to to_affine_plain's lane-by-lane inverses."""
+    F = FQ if group == "g1" else FQ2
+    rng = np.random.default_rng(23)
+    pts = (bls_g1_points if group == "g1" else bls_g2_points)(rng, min(n, 8))
+    pts = (pts * n)[:n]
+    if n > 1:
+        pts[1] = (*to_affine(F, pts[1]), F.one)
+    for j in infinity:
+        pts[j] = inf(F)
+    p = torch.from_numpy((K2.g1_to_limbs if group == "g1" else K2.g2_to_limbs)(pts))
+    out = torch.full((n, 2, *p.shape[2:]), -1, dtype=torch.int64)
+    fn = getattr(shim_libs["g"], f"bls_{group}_to_affine")
+    assert host_shim.call(fn, p.data_ptr(), out.data_ptr(), n, None) == 0
+    assert torch.equal(out, K2.to_affine_plain(group, p))
+    for j in infinity:
+        assert not out[j].any(), f"infinity lane {j} is not (0, 0)"
 
 
 def test_g2_team_subgroup_check_matches_plain(shim_libs):
