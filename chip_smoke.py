@@ -18,7 +18,10 @@ each, any failure ends the run with a non-zero exit code:
    hash-to-G2 with edge lanes: u = 0, a non-square g(x1), u1 = u0) equal
    to its plain version at the BLS main path's shapes, the G2 ladder on
    affine points as the verifier stages them, on Jacobian ones and at the
-   edge scalars 0, 1, 2, 2^63 and 2^64 - 1; the affine conversions also
+   edge scalars 0, 1, 2, 2^63 and 2^64 - 1; the segment sums also on
+   rows of pt_add's cases (bls_segment_rows), the verifier's [3, 512]
+   chunk, a G2 row padded as the verifier pads it and K11's [1, 4096];
+   the affine conversions also
    over three blocks with infinity lanes and at 4,096 lanes;
    each with its time, the plain version's time and its bound; the
    epoch-sweep kernel equal to its plain version at 2^20 validators,
@@ -85,6 +88,7 @@ and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -142,6 +146,7 @@ BLS_FQ_MULS = {
     "g1_mdbl": 6,  # 1M + 5S, an affine input
     "g1_add": 16,  # 11M + 5S
     "g1_madd": 11,  # 7M + 4S, an affine addend
+    "g1_aadd": 6,  # 4M + 2S, both affine (Z1 = Z2 = 1)
     # affine + affine with Montgomery's batch inversion: the slope, its
     # square and y3 (2M + 1S), 3 products per element of the shared
     # inversion; plus one fq_inv per batch
@@ -150,6 +155,7 @@ BLS_FQ_MULS = {
     "g2_mdbl": 13,  # 1M + 5S, an affine input
     "g2_add": 43,
     "g2_madd": 29,  # 7M + 4S, an affine addend
+    "g2_aadd": 16,  # 4M + 2S, both affine
     # a^(p-2), Fermat's chain, as K9 (csrc/msm.cu) inverts; the
     # conversions to affine count their binary inversion's own work
     # (_binary_inv_ops)
@@ -535,6 +541,78 @@ def bls_g1_point_of_order(rng: np.random.Generator, q: int):
         pt = pt_mul(FQ, (x, y, 1), H1 * R // q)
         if not is_inf(FQ, pt) and is_inf(FQ, pt_mul(FQ, pt, q)):
             return pt
+
+
+def bls_segment_rows(rng: np.random.Generator, group: str, case: str, n: int, k: int, pads: int = 0) -> np.ndarray:
+    """[n, k, 3, coord] Montgomery limbs for the segment sums: n rows of k
+    (a power of two) points each, the last `pads` lanes of every row the
+    verifier's pads (all-zero limbs, Z = 0). Points are chains P, P + S,
+    P + 2S, ... from a seeded P and step S. Cases:
+
+    * "affine": affine points (Z = 1, as the verifier stages pubkeys), the
+      first pair repeated (a doubling at the first level);
+    * "distinct": affine points, none repeated (a block's committees);
+    * "jacobian": Jacobian points (Z != 1, as the ladders leave them);
+    * "edge": 5 rows (n is ignored; k >= 16) of affine points whose first
+      lanes hold pt_add's cases: row 0 [P, P, Q, -Q, J, A, A, J, R', R]
+      (an affine doubling, P + (-P), both mixed orders, a Jacobian R' plus
+      the same point affine; J Jacobian); row 1
+      [P, P, P, P] (the second level doubles a Jacobian 2P); row 2 only
+      pads; row 3 [P, -P, pad, pad, Q, R] (the (1, 1, 0) of P + (-P) meets
+      a pad's sum, then a live point); row 4 all Jacobian, [J, J', K,
+      -K'] with J' = J and K' = K at other Z (a doubling and P + (-P) on
+      the general formula)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, G1_GEN, G2_GEN, batch_to_affine, pt_add, pt_mul, pt_neg
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import P
+
+    K, gen = (FQ, G1_GEN) if group == "g1" else (FQ2, G2_GEN)
+    zero = (K.zero, K.zero, K.zero)
+
+    def chain(m: int) -> list:
+        p, s = (pt_mul(K, gen, v) for v in bls_scalars(rng, 2, 255))
+        out = []
+        for _ in range(m):
+            out.append(p)
+            p = pt_add(K, p, s)
+        return [(x, y, K.one) for x, y in batch_to_affine(K, out)]
+
+    def rescale(pt):  # the same point at a seeded Z: (l^2 X, l^3 Y, l Z)
+        v = bls_scalars(rng, 2, 384)
+        lam = v[0] % P if group == "g1" else (v[0] % P, v[1] % P)
+        l2 = K.sqr(lam)
+        return (K.mul(pt[0], l2), K.mul(pt[1], K.mul(l2, lam)), K.mul(pt[2], lam))
+
+    rows = []
+    if case == "edge":
+        for r in range(5):
+            a = chain(k)
+            if r == 0:
+                p, q, j = a[0], a[1], rescale(a[2])
+                a[:10] = [p, p, q, pt_neg(K, q), j, a[3], a[3], j, rescale(a[4]), a[4]]
+            elif r == 1:
+                a[:4] = [a[0]] * 4
+            elif r == 2:
+                a = [zero] * k
+            elif r == 3:
+                a[:4] = [a[0], pt_neg(K, a[0]), zero, zero]
+            else:
+                a = [rescale(v) for v in a]
+                a[1] = rescale(a[0])
+                a[3] = rescale(pt_neg(K, a[2]))
+            rows.append(a)
+    else:
+        for _ in range(n):
+            a = chain(k)
+            if case == "affine":
+                a[1] = a[0]
+            elif case == "jacobian":
+                a = [rescale(v) for v in a]
+            rows.append(a)
+    for a in rows:
+        a[k - pads :] = [zero] * pads
+    pts = [v for a in rows for v in a]
+    limbs = k_g.g1_to_limbs(pts) if group == "g1" else k_g.g2_to_limbs(pts)
+    return limbs.reshape(len(rows), k, *limbs.shape[1:])
 
 
 def htc_gx1_is_square(u: tuple) -> bool:
@@ -1074,6 +1152,55 @@ def _binary_inv_ops(a: int) -> tuple[int, int]:
         ops += 24
 
 
+def _segment_fq_muls(group: str, pts: torch.Tensor) -> int:
+    """The least Fq products of segment sums over [n, k, 3, coord] points,
+    on this run's data, a row at a time (csrc/bls381_g.cu's header). The
+    row's live points (Z != 0) are taken by value, their repeats and
+    cancellations as known: a point and its negation cost nothing; c > 1
+    copies of one point are c times it, a doubling (an affine one where a
+    copy is affine) and then doublings and additions as a ladder does. The
+    m distinct values left add up in a chain, the lesser of two: from two
+    affine points at Z1 = Z2 = 1, then a mixed addition for each further
+    affine one and a general one for each Jacobian one; or from a Jacobian
+    one, every affine one mixed."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, to_affine
+
+    K = FQ if group == "g1" else FQ2
+    cost = {op: BLS_FQ_MULS[f"{group}_{op}"] for op in ("dbl", "mdbl", "add", "madd", "aadd")}
+    pts_np = pts.cpu().numpy()
+    total = 0
+    for row in pts_np:
+        live = [q for q in (k_g.g1_from_limbs(row) if group == "g1" else k_g.g2_from_limbs(row)) if not K.is_zero(q[2])]
+        copies: dict = {}  # affine value -> [copies, whether one is affine]
+        for q in live:
+            key = q[:2] if q[2] == K.one else to_affine(K, q)
+            neg = (key[0], K.neg(key[1]))
+            if neg in copies:  # cancels a copy of its negation
+                copies[neg][0] -= 1
+                if not copies[neg][0]:
+                    del copies[neg]
+                continue
+            c = copies.setdefault(key, [0, False])
+            c[0] += 1
+            c[1] = c[1] or q[2] == K.one
+        affine = jacobian = 0
+        for c, any_affine in copies.values():
+            if c == 1:
+                affine += any_affine
+                jacobian += not any_affine
+                continue
+            total += cost["mdbl" if any_affine else "dbl"] + cost["dbl"] * (c.bit_length() - 2)
+            total += cost["madd" if any_affine else "add"] * (bin(c).count("1") - 1)
+            jacobian += 1
+        chains = []
+        if affine >= 2:
+            chains.append(cost["aadd"] + (affine - 2) * cost["madd"] + jacobian * cost["add"])
+        if jacobian:
+            chains.append((jacobian - 1) * cost["add"] + affine * cost["madd"])
+        total += min(chains, default=0)
+    return total
+
+
 def _to_affine_work(group: str, pts: torch.Tensor) -> tuple[int, int, int]:
     """The least work of converting the Jacobian `pts` to affine (derived
     in csrc/bls381_g.cu's header): Montgomery's batch inversion over the
@@ -1215,6 +1342,18 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     # g(x1) is not a square in lane 1
     u_np, htc_lanes = htc_edge_field_elements(rng, lanes)
     u = torch.from_numpy(u_np).to(dev)
+    # the segment sums' other rows: pt_add's cases (bls_segment_rows
+    # "edge"; G1 at k = 128, the first level on threads), the verifier's
+    # last chunk ([3, 512]), a G2 row padded as the verifier pads 27 sets
+    # (nb = 32) and K11's one row of 4,096 Jacobian points
+    seg_rows = {
+        ("g1", "edge"): bls_segment_rows(rng, "g1", "edge", 0, 128, 8),
+        ("g2", "edge"): bls_segment_rows(rng, "g2", "edge", 0, lanes, 5),
+        ("g2", "padded"): bls_segment_rows(rng, "g2", "jacobian", 1, lanes, lanes - 27),
+        ("g1", str(wide)): bls_segment_rows(rng, "g1", "jacobian", 1, wide),
+    }
+    seg_rows = {key: torch.from_numpy(t).to(dev) for key, t in seg_rows.items()}
+    seg_rows[("g1", f"3,{k}")] = grid[:3].contiguous()
 
     W = 8  # bytes per limb as the card moves them
     cases = {
@@ -1263,15 +1402,24 @@ def phase_bls_kernel_checks(seed: int) -> dict:
             lambda: k_g.segment_sum("g1", grid),
             lambda: k_g.segment_sum_plain("g1", grid),
             # a row's repeated pair is an affine doubling, then 486 mixed additions
-            lanes * (BLS_FQ_MULS["g1_mdbl"] + 486 * BLS_FQ_MULS["g1_madd"]),
+            _segment_fq_muls("g1", grid),
             grid.numel() * W + lanes * 36 * W,
         ),
         "g2_segment_sum": (
             lambda: k_g.segment_sum("g2", g2_row),
             lambda: k_g.segment_sum_plain("g2", g2_row),
-            (lanes - 1) * BLS_FQ_MULS["g2_add"],
+            _segment_fq_muls("g2", g2_row),
             g2_row.numel() * W + 72 * W,
         ),
+        **{
+            f"{group}_segment_sum[{tag}]": (
+                lambda group=group, t=t: k_g.segment_sum(group, t),
+                lambda group=group, t=t: k_g.segment_sum_plain(group, t),
+                _segment_fq_muls(group, t),
+                t.numel() * W + t[:, 0].numel() * W,
+            )
+            for (group, tag), t in seg_rows.items()
+        },
         "g1_to_affine": (
             lambda: k_g.to_affine("g1", g1_t),
             lambda: k_g.to_affine_plain("g1", g1_t),
@@ -1385,7 +1533,7 @@ def phase_bls_kernel_checks(seed: int) -> dict:
     }
     out["registers"] = {
         "bls381_htc.cu": _ptxas_of(k_htc.LIB, "hash_to_g2"),
-        "bls381_g.cu": _ptxas_of(k_g.LIB, "g1_ladder", "g2_ladder", "scalar_mul_kernel", "to_affine"),
+        "bls381_g.cu": _ptxas_of(k_g.LIB, "g1_ladder", "g2_ladder", "scalar_mul_kernel", "to_affine", "segment_sum"),
         "bls381_pairing.cu": _ptxas_of(k_pair.LIB, "subgroup_check"),
     }
     emit(out)
@@ -1511,15 +1659,20 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_bls_counts()
     times = []
-    for rep in range(5):
-        block = fresh_signatures()
-        t0 = time.perf_counter()
-        ok = bls.verify_signature_sets(block, random.Random(seed + rep))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if not ok:
-            raise AssertionError(f"(a) the cuda backend rejected the valid block (run {rep})")
+    seg_shapes: dict = {"g1_segment_sum": {}, "g2_segment_sum": {}}
+    with _segment_sum_shapes(seg_shapes):
+        for rep in range(5):
+            block = fresh_signatures()
+            t0 = time.perf_counter()
+            ok = bls.verify_signature_sets(block, random.Random(seed + rep))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not ok:
+                raise AssertionError(f"(a) the cuda backend rejected the valid block (run {rep})")
     counts = bls_counts()
+    for name, shapes in seg_shapes.items():
+        if sum(v["launches"] for v in shapes.values()) != counts[name]:
+            raise AssertionError(f"{name}: launches by shape {shapes} do not add up to {counts[name]}")
     peak = torch.cuda.max_memory_allocated()
     block = fresh_signatures()
     t0 = time.perf_counter()
@@ -1605,6 +1758,7 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
         "pubkeys_per_s": n_pubkeys / med,
         "launches": {n: counts[n] for n in BLS_KERNELS},
         "launches_per_block": {n: counts[n] / 5 for n in BLS_KERNELS},
+        "segment_sum_launches_by_shape": seg_shapes,
         "max_memory_allocated_bytes": peak,
         "profile": profile,
         "host_backend_block_s": host_block_s,
@@ -1614,6 +1768,29 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
     }
     emit(out)
     return out, blk["sk_of"]
+
+
+@contextlib.contextmanager
+def _segment_sum_shapes(log: dict):
+    """While open, K2.segment_sum's calls by [n, k] into log[name]: the
+    calls and the kernel launches they made (a pass each; the wrapper's
+    COUNTS, read around each call)."""
+    inner = k_g.segment_sum
+
+    def recorded(group, pts):
+        name = f"{group}_segment_sum"
+        before = k_g.COUNTS[name]
+        out = inner(group, pts)
+        v = log[name].setdefault(f"[{pts.shape[0]},{pts.shape[1]}]", {"calls": 0, "launches": 0})
+        v["calls"] += 1
+        v["launches"] += k_g.COUNTS[name] - before
+        return out
+
+    k_g.segment_sum = recorded
+    try:
+        yield
+    finally:
+        k_g.segment_sum = inner
 
 
 def _device_ms_by_name(prof) -> dict:
@@ -3076,6 +3253,17 @@ def main(argv=None) -> int:
                             f"ms_{RLC_POINTS}": bls_checks["kernels"][f"{name}[{RLC_POINTS}]"]["ms"],
                         }
                         if name.endswith("_to_affine")
+                        else {}
+                    ),
+                    # the other rows of phase 3; phase 5's calls and launches by [n, k]
+                    **(
+                        {
+                            f"ms_{key[len(name) + 1 : -1].replace(',', '_')}": c["ms"]
+                            for key, c in bls_checks["kernels"].items()
+                            if key.startswith(f"{name}[")
+                        }
+                        | {"launches_by_shape": bls_path["segment_sum_launches_by_shape"][name]}
+                        if name.endswith("_segment_sum")
                         else {}
                     ),
                     # K11's 4,096 lanes, in each layout

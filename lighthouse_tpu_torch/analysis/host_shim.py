@@ -12,7 +12,8 @@ per point) is not. This module makes nvcc's dialect host C++20:
   block), ``threadIdx``/``blockIdx`` as ``thread_local``
   ``dim3``s, ``__syncthreads`` as a ``std::barrier`` of the block's threads
   and ``__syncwarp`` as one of the warp's (32 threads, or the block's last
-  ones), ``__ffs`` as ``__builtin_ffs``, and stubs ``clock64``,
+  ones) or, given a mask of fewer lanes, of those lanes (a team narrower
+  than a warp), ``__ffs`` as ``__builtin_ffs``, and stubs ``clock64``,
   ``cudaGetLastError`` and ``cudaDeviceSynchronize``; a stub
   ``cuda_runtime.h`` includes nothing;
 * each launch ``kernel<T><<<grid, block, ...>>>(args);`` is rewritten to
@@ -49,8 +50,11 @@ from ..ops.cuda_build import CSRC
 SHIM_H = r"""
 #pragma once
 #include <barrier>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
+#include <utility>
 #include <vector>
 
 struct dim3 {
@@ -76,11 +80,40 @@ static inline int __ffs(int x) { return __builtin_ffs(x); }
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline thread_local std::barrier<>* shim_block_sync;
-inline thread_local std::barrier<>* shim_warp_sync;
 
-static inline void __syncthreads() { shim_block_sync->arrive_and_wait(); }
-static inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp_sync->arrive_and_wait(); }
+// a block's barriers: all its threads, each warp's, and one for each
+// (warp, lane mask) that a __syncwarp(mask) names, made at its first use
+struct shim_block {
+  std::barrier<> all;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::mutex mu;
+  std::map<std::pair<unsigned, unsigned>, std::unique_ptr<std::barrier<>>> masked;
+  unsigned n;
+  explicit shim_block(unsigned threads) : all((std::ptrdiff_t)threads), n(threads) {
+    for (unsigned w = 0; w < n; w += 32)
+      warps.push_back(std::make_unique<std::barrier<>>((std::ptrdiff_t)(n - w < 32 ? n - w : 32)));
+  }
+};
+inline thread_local shim_block* shim_this_block;
+inline thread_local unsigned shim_tid;
+
+static inline void __syncthreads() { shim_this_block->all.arrive_and_wait(); }
+static inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  const unsigned w = shim_tid / 32, lanes = shim_this_block->n - 32 * w;
+  const unsigned live = lanes >= 32 ? 0xffffffffu : (1u << lanes) - 1;
+  if ((mask & live) == live) {
+    shim_this_block->warps[w]->arrive_and_wait();
+    return;
+  }
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> g(shim_this_block->mu);
+    auto& slot = shim_this_block->masked[{w, mask}];
+    if (!slot) slot = std::make_unique<std::barrier<>>((std::ptrdiff_t)__builtin_popcount(mask & live));
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
 
 // the grid's blocks one after another, each block's threads side by side
 template <class F>
@@ -91,17 +124,14 @@ void shim_launch(dim3 grid, dim3 block, F&& body) {
   for (unsigned bz = 0; bz < grid.z; bz++)
     for (unsigned by = 0; by < grid.y; by++)
       for (unsigned bx = 0; bx < grid.x; bx++) {
-        std::barrier<> all((std::ptrdiff_t)n);
-        std::vector<std::unique_ptr<std::barrier<>>> warps;
-        for (unsigned w = 0; w < n; w += 32)
-          warps.push_back(std::make_unique<std::barrier<>>((std::ptrdiff_t)(n - w < 32 ? n - w : 32)));
+        shim_block blk(n);
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < n; t++)
           threads.emplace_back([&, t] {
             blockIdx = dim3(bx, by, bz);
             threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
-            shim_block_sync = &all;
-            shim_warp_sync = warps[t / 32].get();
+            shim_this_block = &blk;
+            shim_tid = t;
             body();
           });
         for (auto& th : threads) th.join();

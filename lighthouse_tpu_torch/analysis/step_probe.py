@@ -25,6 +25,24 @@ Builds its probe from the repository's headers with nvcc into DIR
 (default lighthouse_tpu_torch/build/step_probe) and prints one JSON
 object: the card's nvidia-smi line and the cycles of each step over two
 runs. Needs nvcc and one card.
+
+    python3 -m lighthouse_tpu_torch.analysis.step_probe --segment-levels [--n 32]
+
+Times instead what a level of K2's segment sums costs: the launchers
+``bls_g1_segment_sum`` and ``bls_g2_segment_sum`` (csrc/bls381_g.cu) at
+[n, k] for each power of two k up to one block's span (G1 128 points, G2
+8), where one launch sums each row, so going from k to 2k adds one tree
+level: for G1 a team level up to k = 64, and from 64 to 128 the first
+level on threads (seg_add_first); for G2 a team level. Rows are affine
+(Z = 1, as the verifier stages pubkeys) or Jacobian (Z != 1), from
+chip_smoke.bls_segment_rows, one seeded row repeated n times. Then the
+main path's shapes, which take two passes: G1 [32, 512] with a repeated
+first pair in each row (phase 3's rows) and with none (phase 5's
+committees), [3, 512], [1, 4096] (K11), G2 [1, 32]. The launches queue
+behind a `torch.cuda._sleep`, so CUDA events time the card's work and
+not the host's launch rate: each reading is the median over 5 windows of
+20 launcher calls, in ms a call. Run from the repository root (it
+imports chip_smoke); prints the card's nvidia-smi line and the times.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -167,12 +186,78 @@ def build(out: Path) -> Path:
     return so
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+
+
+def time_segment_sum(group: str, pts: torch.Tensor, windows: int = 5, reps: int = 20) -> float:
+    """Median card ms of one launcher call (all its passes) of the segment
+    sum over `pts`; the output is held to the plain version."""
+    n, k = pts.shape[:2]
+    lib = K2.LIB.load()
+    out = torch.empty((n, *pts.shape[2:]), dtype=torch.int64, device=pts.device)
+    _, scratch = K2.segment_sum_plan(lib, group, n, k)
+    buf = torch.empty((scratch, *pts.shape[2:]), dtype=torch.int64, device=pts.device)
+    args = (pts.data_ptr(), buf.data_ptr(), out.data_ptr(), n, k)
+    fn = f"bls_{group}_segment_sum"
+    K2.LIB.launch(fn, *args, device=pts.device)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(windows):
+        torch.cuda._sleep(10_000_000)  # ~5 ms: the host queues the window meanwhile
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            K2.LIB.launch(fn, *args, device=pts.device)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b) / reps)
+    if not torch.equal(out, K2.segment_sum_plain(group, pts)):
+        raise AssertionError(f"{fn} at {list(pts.shape[:2])} differs from its plain version")
+    return statistics.median(ms)
+
+
+def segment_levels(n: int) -> dict:
+    """The segment sums' times by k up to a block's span, a level each,
+    and at the main path's shapes (the module's docstring)."""
+    from chip_smoke import bls_segment_rows
+
+    span = {"g1": 128, "g2": 8}  # SEG_G1_SPAN, SEG_G2_SPAN
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    out: dict = {"nvidia_smi": _smi(), "n": n, "by_k": {}, "main_path": {}}
+    for group, kind in (("g1", "affine"), ("g1", "jacobian"), ("g2", "jacobian")):
+        row = bls_segment_rows(rng, group, kind, 1, span[group])
+        ms = {}
+        k = 1
+        while k <= span[group]:
+            pts = torch.from_numpy(np.ascontiguousarray(np.repeat(row[:, :k], n, 0))).to(dev)
+            ms[k] = time_segment_sum(group, pts)
+            k *= 2
+        out["by_k"][f"{group}_{kind}"] = {
+            "ms": ms,
+            "level_ms": {f"{k // 2}->{k}": ms[k] - ms[k // 2] for k in list(ms)[1:]},
+        }
+    for group, kind, rows, k in (("g1", "affine", 32, 512), ("g1", "distinct", 32, 512), ("g1", "affine", 3, 512),
+                                 ("g1", "jacobian", 1, 4096), ("g2", "jacobian", 1, 32)):
+        pts = torch.from_numpy(bls_segment_rows(rng, group, kind, rows, k)).to(dev)
+        out["main_path"][f"{group}_{kind}[{rows},{k}]"] = time_segment_sum(group, pts)
+    return out
+
+
 def main(argv=None) -> int:
     from ..crypto.bls12_381 import FQ, FQ2, G1_GEN, G2_GEN, R, pt_add, pt_mul, to_affine
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=BUILD_DIR / "step_probe")
+    ap.add_argument("--segment-levels", action="store_true", help="time the segment sums' levels instead")
+    ap.add_argument("--n", type=int, default=32, help="--segment-levels: rows a launch (the verifier's chunk: 32)")
     args = ap.parse_args(argv)
+    if args.segment_levels:
+        print(json.dumps(segment_levels(args.n)), flush=True)
+        return 0
     lib = ctypes.CDLL(str(build(args.out)))
     lib.step_probe.argtypes = [ctypes.c_void_p] * 5
     rng = np.random.default_rng(1)
@@ -181,9 +266,7 @@ def main(argv=None) -> int:
     pts = torch.from_numpy(K2.g2_to_limbs([jac_pt, (*to_affine(FQ2, pt_mul(FQ2, G2_GEN, ks[1])), FQ2.one)])).cuda()
     frv = K8.as_i32(K8.mont_limbs(ks[2:])).cuda()
     g1 = torch.from_numpy(K2.g1_to_limbs([pt_add(FQ, pt_mul(FQ, G1_GEN, k), G1_GEN) for k in ks[:2]])).cuda()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    smi = _smi()
     sink = torch.zeros(3, dtype=torch.int64, device="cuda")
     runs = []
     for _ in range(2):

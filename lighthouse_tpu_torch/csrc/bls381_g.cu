@@ -6,7 +6,7 @@
 //     64-bit random-linear-combination ladders, pt_scalar_mul :368);
 //   * bls381.py:492 g1_sum_reduce and bls381_verify.py:66/103/108
 //     _tree_reduce_scan / g1_segment_sum / g2_sum_reduce (tree sums over a
-//     padded committee axis);
+//     padded committee axis: g1_segment_sum_kernel, g2_segment_sum_kernel);
 //   * bls381_verify.py:122/138 g1_jac_to_affine / g2_jac_to_affine (a
 //     Fermat inverse a lane there; one batch inversion a block here);
 //   * msm.py:172 g1_msm_ladder's per-point ladders (K9 ladder): 256-bit
@@ -63,10 +63,34 @@
 // values. Every product leaves a fully reduced value and each inverse is
 // unique, so the order of operations changes no limb: the output equals
 // the plain version's (ops/bls381.py to_affine_plain) limb for limb.
-// A segment sum is one block per segment, a tree over
-// the (power-of-two) padded axis in a global scratch buffer, one level per
-// __syncthreads(); the tree pairs (0,1), (2,3), ... and then their sums, as
-// the plain version does, so both give the same Jacobian coordinates.
+// A segment sum is the plain version's tree over the (power-of-two)
+// padded axis: pairs (0,1), (2,3), ... and then their sums. Its cost is
+// latency: a level's additions depend on the level below, and one
+// one-thread Jacobian addition took ~72k cycles. So every level gives each
+// addition a worker of its own, and the faster the worker the better:
+//   * Blocks: each pass cuts every segment into aligned sub-segments of up
+//     to SEG_G1_SPAN (128) or SEG_G2_SPAN (8) points, a block each, and
+//     the next pass sums their roots (an aligned sub-segment is a subtree
+//     of the plain tree, so the limbs stay): [32, 512] is 128 blocks, then
+//     32 of 4 roots; [1, 4096] 32 blocks, then one of 32 roots; G2 [1, 32]
+//     4 blocks, then one. A block loads its points into shared memory at
+//     once (a G1 point 144 bytes, a G2 one 288) and keeps its tree there,
+//     one __syncthreads() a level. The time is the levels' latency: at
+//     [32, 512] and [3, 512] alike (analysis/step_probe.py --segment-levels).
+//   * G1's first level, where a block has more pairs than teams (128
+//     points), is a thread an addition, with Z = 1 (Montgomery's one)
+//     tested per operand: the verifier stages pubkeys affine, so both are,
+//     and the same formula's field elements need 6 products (11 with one
+//     affine operand, 16 with none; seg_add_first).
+//   * The other levels are a team an addition: G1 on g1_team.cuh's team
+//     narrowed to 8 lanes (a step uses 5; four teams a warp, each with a
+//     __syncwarp mask of its own, 32 a block of 256 threads, so one block
+//     holds a level of 32 additions); G2 on g2_team.cuh's warp team, 4 a
+//     block (its shared operands, 6 KB a team, bound the count), with
+//     team_madd where the addend is affine.
+// Every path computes pt_add's field elements, fully reduced, so the
+// output equals the plain version's limb for limb (host-shim and card
+// tests hold every case of pt_add).
 //
 // What bounds it: 32-bit multiply-adds. The bound counts the least Fq
 // multiplications the function needs, from the cheapest known formulas,
@@ -82,9 +106,20 @@
 //     and 31, so G1 63*7 + 31*16 = 937 and G2 63*16 + 31*43 = 2,341. On
 //     an affine G2 point the first doubling is 13 and every addition a
 //     mixed one, 29: 13 + 62*16 + 31*29 = 1,904.
-//   * segment sum over k affine points (the pubkeys): k - 1 mixed
-//     additions (11); over k Jacobian points (the G2 sum): k - 1 additions
-//     (43).
+//   * segment sum over a row's live points (Z != 0; pads need nothing),
+//     its repeats and cancellations taken as known (chip_smoke
+//     _segment_fq_muls): a point and its negation cost nothing; c copies
+//     of one point are c times it (doublings, the first an affine one, 6,
+//     G2 13, where a copy is affine, then additions); the m distinct
+//     values left add up in a chain, the lesser of: two affine points at
+//     Z1 = Z2 = 1 (4M + 2S: 6; G2 16), then a mixed addition (11; 29) for
+//     each further affine one and a general one (16; 43) for each
+//     Jacobian one; or a chain from a Jacobian one, every affine one
+//     mixed. A pubkey row of 488 with one repeated pair (phase 3) is an
+//     affine doubling and 486 mixed additions, 5,352; 488 distinct keys
+//     6 + 486 * 11, the same. The kernel's tree does more: k / 2 affine
+//     additions (6 each) and k / 2 - 1 general ones, 11 k - 16 in G1, and
+//     a team round keeps at most 5 of 8 lanes multiplying.
 //   * to affine over n live lanes (an infinity needs nothing): one batch
 //     inversion in Fq (Montgomery's trick: 3(n - 1) products and one
 //     inverse of the product D), then z^-1, z^-2, x z^-2, z^-3, y z^-3 per
@@ -203,43 +238,206 @@ scalar_mul_wide_kernel(const long long* pts, const int* words, long long* out, l
   pt_st(out + i * p3, acc);
 }
 
-// pts [n, k, 3, w] (k a power of two), buf [n, k/2, 3, w], out [n, 3, w]
-template <class F>
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
-segment_sum_kernel(const long long* pts, long long* buf, long long* out, int k) {
-  const long long p3 = 3 * limbs<F>::n;
-  const long long seg = blockIdx.x;
-  const long long* in = pts + seg * k * p3;
-  long long* dst = out + seg * p3;
-  if (k == 1) {
-    if (threadIdx.x == 0) {
-      for (int j = 0; j < p3; j++) dst[j] = in[j];
-    }
+// ---------------------------------------------------------------------------
+// Segment sums: a block a sub-segment, a worker an addition at every level
+// ---------------------------------------------------------------------------
+
+// G1: teams of 8 lanes (a team step uses lanes 0-4), four a warp, 32 a
+// block; a block sums up to SEG_G1_SPAN points: 64 additions on threads,
+// then 6 team levels
+#define SEG_G1_TEAM 8
+#define SEG_G1_TEAMS 32
+#define SEG_G1_THREADS (SEG_G1_TEAM * SEG_G1_TEAMS)
+#define SEG_G1_SPAN 128
+// G2: warp teams (g2_team.cuh), four a block over up to 8 points
+#define SEG_G2_TEAMS 4
+#define SEG_G2_SPAN 8
+
+// P + Q on one thread for the first level, with every case of pt_add and
+// Z = 1 (Montgomery's one) tested per operand: both affine 4M + 2S (6
+// products), one affine 7M + 4S (11), neither 11M + 5S (16). A product by
+// one is exact, so each branch leaves pt_add's limbs. Every product is
+// the one out-of-line copy the teams run (fq_mul1): inlined copies, each
+// run once a launch, made the level slower (analysis/step_probe.py
+// --segment-levels).
+DEVNI void seg_add_first(jac<fp>& r, const jac<fp>& p, const jac<fp>& q) {
+  if (fp_is_zero(p.z)) { r = q; return; }
+  if (fp_is_zero(q.z)) { r = p; return; }
+  fp one, u1, u2, s1, s2, t;
+  fp_one(one);
+  const bool a1 = fp_eq(p.z, one), a2 = fp_eq(q.z, one);
+  if (a2) {
+    u1 = p.x;
+    s1 = p.y;
+  } else {  // U1 = X1 Z2^2, S1 = Y1 (Z2^2 Z2)
+    fq_mul1(t, q.z, q.z);
+    fq_mul1(u1, p.x, t);
+    fq_mul1(t, t, q.z);
+    fq_mul1(s1, p.y, t);
+  }
+  if (a1) {
+    u2 = q.x;
+    s2 = q.y;
+  } else {  // U2 = X2 Z1^2, S2 = Y2 (Z1^2 Z1)
+    fq_mul1(t, p.z, p.z);
+    fq_mul1(u2, q.x, t);
+    fq_mul1(t, t, p.z);
+    fq_mul1(s2, q.y, t);
+  }
+  if (fp_eq(u1, u2)) {
+    if (fp_eq(s1, s2)) pt_double(r, p); else pt_inf(r);
     return;
   }
-  const int half = k / 2;
-  long long* b = buf + seg * half * p3;
-  for (int t = threadIdx.x; t < half; t += blockDim.x) {
-    jac<F> a, c;
-    pt_ld(a, in + 2 * t * p3);
-    pt_ld(c, in + (2 * t + 1) * p3);
-    pt_add(a, a, c);
-    pt_st(b + t * p3, a);
+  fp h, h2, rr, i, rr2, j, v, x3, y3, sj, z3;
+  fp_sub(h, u2, u1);
+  fp_add(h2, h, h);
+  fp_sub(rr, s2, s1);
+  fp_add(rr, rr, rr);
+  fq_mul1(i, h2, h2);  // I = (2H)^2
+  fq_mul1(rr2, rr, rr);
+  fq_mul1(j, h, i);  // J = H I, V = U1 I
+  fq_mul1(v, u1, i);
+  fp_sub(x3, rr2, j);  // X3 = rr^2 - J - 2V
+  fp_add(t, v, v);
+  fp_sub(x3, x3, t);
+  fp_sub(t, v, x3);
+  fq_mul1(y3, rr, t);  // rr (V - X3), S1 J
+  fq_mul1(sj, s1, j);
+  fp_add(t, sj, sj);
+  fp_sub(y3, y3, t);
+  // Z3 = 2 (Z1 Z2) H
+  if (a1 && a2) z3 = h;
+  else if (a1) fq_mul1(z3, q.z, h);
+  else if (a2) fq_mul1(z3, p.z, h);
+  else {
+    fq_mul1(z3, p.z, q.z);
+    fq_mul1(z3, z3, h);
   }
+  fp_add(r.z, z3, z3);
+  r.x = x3;
+  r.y = y3;
+}
+
+// an addition on a team: G1's team_add; G2's team_madd where Q is affine
+// (Z = 1, tested per operand), its team_add (a = 0) otherwise
+DEV void seg_team_add(const G1Team& tm, jac<fp>& r, const jac<fp>& p, const jac<fp>& q) { team_add(tm, r, p, q); }
+DEV void seg_team_add(const G2Team& tm, jac<fp2>& r, const jac<fp2>& p, const jac<fp2>& q) {
+  fp2 one;
+  fp2_one(one);
+  if (fp2_eq(q.z, one)) team_madd(tm, r, p, q); else team_add(tm, r, p, q, false);
+}
+
+// `words` limbs (int64, each a 32-bit value) into shared memory as 32-bit
+// words, spread over the block: a point [3, w] is a jac<F> word for word
+DEV void seg_load(void* dst, const long long* src, int words) {
+  uint32_t* w = (uint32_t*)dst;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) w[i] = (uint32_t)src[i];
+}
+
+// The tree's levels on teams over sp[0..m) (m a power of two, at most twice
+// the block's teams) -> sp[0]: at stride s team j adds sp[i + s] into sp[i],
+// i = 2 s j, the plain tree's pairs; no team reads another's output before
+// the level's barrier.
+template <class Team, class F>
+DEV void seg_tree(const Team& tm, int team, jac<F>* sp, int m) {
+  for (int s = 1; s < m; s *= 2) {
+    const int i = 2 * s * team;
+    if (i < m) seg_team_add(tm, sp[i], sp[i], sp[i + s]);
+    __syncthreads();
+  }
+}
+
+// pts [blocks, span, 3, 12] -> out [blocks, 3, 12]: a block sums one
+// aligned sub-segment of `span` points (a power of two, at most
+// SEG_G1_SPAN) in shared memory. Above 2 * SEG_G1_TEAMS points the first
+// level runs a thread an addition (seg_add_first), in place; the rest of
+// the tree runs a team an addition. sp and the slots fill the 48 KB of
+// static shared memory.
+__global__ void __launch_bounds__(SEG_G1_THREADS)
+g1_segment_sum_kernel(const long long* pts, long long* out, int span) {
+  __shared__ jac<fp> sp[SEG_G1_SPAN];
+  __shared__ fp slots[SEG_G1_TEAMS][G1_SLOTS];
+  const int t = threadIdx.x, team = t / SEG_G1_TEAM;
+  const G1Team tm{t % SEG_G1_TEAM, slots[team], 0xffu << (t & 24)};
+  seg_load(sp, pts + blockIdx.x * (long long)span * 36, span * 36);
   __syncthreads();
-  for (int s = 1; s < half; s *= 2) {
-    for (int t = threadIdx.x; 2 * s * t < half; t += blockDim.x) {
-      const int i = 2 * s * t;
-      jac<F> a, c;
-      pt_ld(a, b + i * p3);
-      pt_ld(c, b + (i + s) * p3);
-      pt_add(a, a, c);
-      pt_st(b + i * p3, a);
+  int m = span;  // points in sp for the team levels
+  if (span > 2 * SEG_G1_TEAMS) {
+    m = span / 2;
+    jac<fp> p, q, r;
+    if (t < m) {
+      p = sp[2 * t];
+      q = sp[2 * t + 1];
+    }
+    __syncthreads();  // every pair read before sp[t] is written
+    if (t < m) {
+      seg_add_first(r, p, q);
+      sp[t] = r;
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    for (int j = 0; j < p3; j++) dst[j] = b[j];
+  seg_tree(tm, team, sp, m);
+  if (t < 36) out[blockIdx.x * 36ll + t] = ((const uint32_t*)sp)[t];
+}
+
+// pts [blocks, span, 3, 2, 12] -> out [blocks, 3, 2, 12], span at most
+// SEG_G2_SPAN: every level on warp teams
+__global__ void __launch_bounds__(SEG_G2_TEAMS * G2_TEAM)
+g2_segment_sum_kernel(const long long* pts, long long* out, int span) {
+  __shared__ jac<fp2> sp[SEG_G2_SPAN];
+  __shared__ fp opa[SEG_G2_TEAMS][G2_TEAM], opb[SEG_G2_TEAMS][G2_TEAM], prod[SEG_G2_TEAMS][G2_TEAM];
+  __shared__ fp2 slots[SEG_G2_TEAMS][G2_SLOTS];
+  const int t = threadIdx.x, team = t / G2_TEAM;
+  const G2Team tm{t % G2_TEAM, opa[team], opb[team], prod[team], slots[team]};
+  seg_load(sp, pts + blockIdx.x * (long long)span * 72, span * 72);
+  __syncthreads();
+  seg_tree(tm, team, sp, span);
+  if (t < 72) out[blockIdx.x * 72ll + t] = ((const uint32_t*)sp)[t];
+}
+
+static int seg_span(const fp*) { return SEG_G1_SPAN; }
+static int seg_span(const fp2*) { return SEG_G2_SPAN; }
+static void seg_launch(const fp*, const long long* in, long long* out, long long blocks, int span, cudaStream_t st) {
+  g1_segment_sum_kernel<<<(unsigned)blocks, SEG_G1_THREADS, 0, st>>>(in, out, span);
+}
+static void seg_launch(const fp2*, const long long* in, long long* out, long long blocks, int span, cudaStream_t st) {
+  g2_segment_sum_kernel<<<(unsigned)blocks, SEG_G2_TEAMS * G2_TEAM, 0, st>>>(in, out, span);
+}
+
+// The passes of a segment sum over [n, k] in sub-segments of up to `span`
+// points: returns their count, a kernel launch each, and sets *scratch to
+// the points of buf that segment_sum_passes uses: the first two passes'
+// roots when they are not the output (n k / span + n k / span^2 at most;
+// a later pass reuses that room).
+static int seg_plan(long long n, long long k, long long span, long long* scratch) {
+  int passes = 1;
+  *scratch = 0;
+  for (long long len = k; len > span; len /= span, passes++) {
+    if (passes <= 2) *scratch += n * (len / span);
+  }
+  return passes;
+}
+
+// pts [n, k, 3, w] -> out [n, 3, w] in passes: each cuts every segment into
+// aligned sub-segments of up to seg_span points, a block each, whose roots
+// are the next pass's segments (subtrees of the plain tree, so the limbs
+// stay). The roots alternate between buf's start and the points after the
+// previous pass's (seg_plan counts them).
+template <class F>
+static int segment_sum_passes(const long long* pts, long long* buf, long long* out, long long n, int k, cudaStream_t st) {
+  const long long p3 = 3 * limbs<F>::n;
+  const long long* src = pts;
+  long long* dst = buf;
+  for (long long len = k;;) {
+    const long long span = len < seg_span((F*)0) ? len : seg_span((F*)0);
+    const long long blocks = n * (len / span);
+    long long* o = span == len ? out : dst;
+    seg_launch((F*)0, src, o, blocks, (int)span, st);
+    const int err = (int)cudaGetLastError();
+    if (err || o == out) return err;
+    src = o;
+    dst = o == buf ? buf + blocks * p3 : buf;
+    len /= span;
   }
 }
 
@@ -354,14 +552,19 @@ int bls_g1_scalar_mul_wide(const long long* pts, const int* words, long long* ou
   return (int)cudaGetLastError();
 }
 
+// *scratch: the points of buf that a segment sum over [n, k] needs (in G2
+// if g2); returns its kernel launches
+int bls_segment_sum_plan(int g2, long long n, int k, long long* scratch) {
+  return seg_plan(n, k, g2 ? SEG_G2_SPAN : SEG_G1_SPAN, scratch);
+}
+
+// buf: bls_segment_sum_plan's points
 int bls_g1_segment_sum(const long long* pts, long long* buf, long long* out, long long n, int k, void* stream) {
-  segment_sum_kernel<fp><<<(unsigned)n, LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, buf, out, k);
-  return (int)cudaGetLastError();
+  return segment_sum_passes<fp>(pts, buf, out, n, k, (cudaStream_t)stream);
 }
 
 int bls_g2_segment_sum(const long long* pts, long long* buf, long long* out, long long n, int k, void* stream) {
-  segment_sum_kernel<fp2><<<(unsigned)n, LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, buf, out, k);
-  return (int)cudaGetLastError();
+  return segment_sum_passes<fp2>(pts, buf, out, n, k, (cudaStream_t)stream);
 }
 
 int bls_g1_to_affine(const long long* pts, long long* out, long long n, void* stream) {

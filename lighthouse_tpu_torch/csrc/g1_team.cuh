@@ -1,5 +1,6 @@
-// Warp-team G1 arithmetic: a warp works on one Jacobian point over Fq
-// together. K2's G1 ladder (bls381_g.cu g1_ladder_kernel) runs on it.
+// Team G1 arithmetic: a team of lanes works on one Jacobian point over Fq
+// together. K2's G1 ladder (bls381_g.cu g1_ladder_kernel) runs a warp a
+// team on it, K2's segment sums (g1_segment_sum_kernel) 8 lanes a team.
 //
 // The G2 team (g2_team.cuh) puts four Fq products on lanes for each Fq2
 // product and forms each coordinate with a subtraction. Over Fq a product
@@ -31,10 +32,13 @@
 #define G1_SLOTS 20
 
 struct G1Team {
-  int lane;
-  fp* v;  // [G1_SLOTS]: the rounds' products and the sum steps' values
+  int lane;  // 0 .. the team's width - 1
+  fp* v;     // [G1_SLOTS]: the rounds' products and the sum steps' values
+  // the team's lanes in its warp: the whole warp (the ladder), or 8 lanes
+  // of it (the segment sums' teams, four a warp: every step uses lanes 0-4)
+  unsigned mask = 0xffffffffu;
 #ifdef __CUDACC__
-  __device__ void sync() const { __syncwarp(); }
+  __device__ void sync() const { __syncwarp(mask); }
 #else
   void sync() const {}  // host builds run one lane: nothing to wait for
 #endif

@@ -18,8 +18,12 @@ one; the G1 ladder runs a warp per lane on ``csrc/g1_team.cuh`` up to
 batch inversion, a lane a thread and a block of 64 lanes: prefix and
 suffix products of the lanes' Z (G1) or N(Z) (G2) and one binary
 extended-Euclid inverse a block, infinity lanes counted as 1 and written
-as (0, 0). The segment sums run a block per segment and the 256-bit
-ladder a thread per lane.
+as (0, 0). The segment sums cut each segment into aligned sub-segments,
+a block each, and sum the blocks' roots in a further pass: a worker an
+addition at every level, G1's first level a thread an addition (the
+Z = 1 forms where an operand is affine), the other levels on teams
+(g1_team.cuh's, 8 lanes; g2_team.cuh's, a warp), the same tree and limbs
+as the plain version's. The 256-bit ladder runs a thread per lane.
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;
@@ -42,6 +46,7 @@ below it).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -55,7 +60,8 @@ NLIMB = 12
 R_MONT = 1 << 384
 R_INV = pow(R_MONT, -1, P)
 
-# Kernel launches, counted where each kernel launches and nowhere else.
+# Kernel launches, counted where each kernel launches and nowhere else (a
+# segment sum's launcher launches one kernel a pass).
 COUNTS = {
     "g1_scalar_mul": 0,
     "g2_scalar_mul": 0,
@@ -75,6 +81,7 @@ LIB = CudaLibrary(
         "bls_g1_scalar_mul_wide": ("p", "p", "p", "i64", "p"),
         "bls_g1_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g2_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
+        "bls_segment_sum_plan": ("i32", "i64", "i32", "p"),
         "bls_g1_to_affine": ("p", "p", "i64", "p"),
         "bls_g2_to_affine": ("p", "p", "i64", "p"),
     },
@@ -569,9 +576,21 @@ def scalar_mul_wide(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def segment_sum_plan(lib, group: str, n: int, k: int) -> tuple[int, int]:
+    """(kernel launches, scratch points) of `lib`'s bls_{group}_segment_sum
+    over [n, k]: one launch a pass, and the points of buf its passes use
+    (csrc/bls381_g.cu seg_plan)."""
+    scratch = ctypes.c_longlong(0)
+    passes = lib.bls_segment_sum_plan(int(group == "g2"), n, k, ctypes.addressof(scratch))
+    return passes, scratch.value
+
+
 def segment_sum(group: str, pts: torch.Tensor) -> torch.Tensor:
     """[n, k, 3, coord] points (k a power of two; pad with infinities)
-    -> [n, 3, coord] per-row sums."""
+    -> [n, 3, coord] per-row sums: the tree pairs (0, 1), (2, 3), ... and
+    then their sums. The kernel runs it in passes over aligned
+    sub-segments (csrc/bls381_g.cu), a launch each; buf holds the roots
+    between passes."""
     check_limbs(pts, (3, *_coord(group)), "pts")
     n, k = pts.shape[0], pts.shape[1]
     if k < 1 or k & (k - 1):
@@ -580,10 +599,11 @@ def segment_sum(group: str, pts: torch.Tensor) -> torch.Tensor:
         return segment_sum_plain(group, pts)
     dev = _cuda_ok(pts)
     out = torch.empty((n, *pts.shape[2:]), dtype=torch.int64, device=dev)
-    buf = torch.empty((n, max(k // 2, 1), *pts.shape[2:]), dtype=torch.int64, device=dev)
     if n:
+        passes, scratch = segment_sum_plan(LIB.load(), group, n, k)
+        buf = torch.empty((scratch, *pts.shape[2:]), dtype=torch.int64, device=dev)
         LIB.launch(f"bls_{group}_segment_sum", pts.data_ptr(), buf.data_ptr(), out.data_ptr(), n, k, device=dev)
-        COUNTS[f"{group}_segment_sum"] += 1
+        COUNTS[f"{group}_segment_sum"] += passes
     return out
 
 

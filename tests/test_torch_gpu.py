@@ -19,6 +19,7 @@ from chip_smoke import (
     bls_g1_points,
     bls_g2_points,
     bls_scalars,
+    bls_segment_rows,
     bls_twist_point_of_order,
     bls_twist_point_outside_subgroup,
     build_deneb_state,
@@ -101,12 +102,22 @@ def _g2(points, dev):
     return torch.from_numpy(K2.g2_to_limbs(points)).to(dev)
 
 
-def _launched(counts, name, fn):
+def _launched(counts, name, fn, launches=1):
     before = counts[name]
     out = fn()
     torch.cuda.synchronize()
-    assert counts[name] == before + 1
+    assert counts[name] == before + launches
     return out
+
+
+def _segment_passes(group, k):
+    """The kernel launches of a segment sum over k points: a pass cuts a
+    segment into sub-segments of up to 128 (G1) or 8 (G2) points, and the
+    next pass sums their roots."""
+    span, passes = {"g1": 128, "g2": 8}[group], 1
+    while k > span:
+        k, passes = k // span, passes + 1
+    return passes
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -189,6 +200,33 @@ def test_bls_segment_sum_and_affine_match_plain(cuda, group):
     assert torch.equal(got, K2.segment_sum_plain(group, pts))
     aff = _launched(K2.COUNTS, f"{group}_to_affine", lambda: K2.to_affine(group, got))
     assert torch.equal(aff, K2.to_affine_plain(group, got))
+
+
+@pytest.mark.parametrize(
+    "group, case, n, k, pads",
+    [
+        ("g1", "edge", 0, 128, 8),
+        ("g1", "edge", 0, 512, 24),
+        ("g1", "affine", 3, 8, 2),
+        ("g1", "jacobian", 2, 1, 0),
+        ("g1", "jacobian", 2, 2, 0),
+        # the verifier's pubkey rows; K11's and the ladder MSM's one row
+        ("g1", "affine", 32, 512, 24),
+        ("g1", "jacobian", 1, 4096, 0),
+        ("g2", "edge", 0, 32, 5),
+        ("g2", "jacobian", 1, 32, 5),
+        ("g2", "jacobian", 1, 128, 3),
+    ],
+)
+def test_bls_segment_sum_cases_match_plain(cuda, group, case, n, k, pads):
+    """The segment sums' blocks, teams, affine first level and passes
+    over the blocks' roots (the host-shim test's cases, and the main
+    path's shapes), limb-equal to their plain version."""
+    pts = torch.from_numpy(bls_segment_rows(np.random.default_rng(24), group, case, n, k, pads)).to(cuda)
+    got = _launched(
+        K2.COUNTS, f"{group}_segment_sum", lambda: K2.segment_sum(group, pts), _segment_passes(group, pts.shape[1])
+    )
+    assert torch.equal(got, K2.segment_sum_plain(group, pts))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -573,7 +611,8 @@ def test_sharded_rlc_g1_on_a_one_rank_nccl_group(cuda, tmp_path):
         got = K11.sharded_rlc_g1(pt, k, mesh)
         torch.cuda.synchronize()
         assert K2.COUNTS["g1_scalar_mul"] == before["g1_scalar_mul"] + 1
-        assert K2.COUNTS["g1_segment_sum"] == before["g1_segment_sum"] + 2
+        # the shard's 131 terms padded to 256 (two passes), then one rank's sum
+        assert K2.COUNTS["g1_segment_sum"] == before["g1_segment_sum"] + 3
         assert torch.equal(got, K11.fold_plain(K11.local_sum_plain(pt, k)))
     finally:
         close_mesh(mesh)

@@ -1,9 +1,9 @@
-"""K2's warp-team G1 ladder, K2's batch conversions to affine and K4's
-warp-team subgroup check, built as host C++ through the shim of
-lighthouse_tpu_torch.analysis.host_shim (a block's threads as
+"""K2's warp-team G1 ladder, K2's batch conversions to affine, K2's
+segment sums and K4's warp-team subgroup check, built as host C++ through
+the shim of lighthouse_tpu_torch.analysis.host_shim (a block's threads as
 std::threads, __syncwarp and __syncthreads as barriers), against their
 plain PyTorch versions on the CPU: limb for limb (the ladder, the
-conversions), verdict for verdict (the check). This runs the kernels' own
+conversions, the sums), verdict for verdict (the check). This runs the kernels' own
 team and block code, branches and barriers on the CPU; the card's run is
 tests/test_torch_gpu.py's. Skips only where there is no g++.
 """
@@ -19,6 +19,7 @@ from chip_smoke import (
     bls_g1_points,
     bls_g2_points,
     bls_scalars,
+    bls_segment_rows,
     bls_twist_point_of_order,
     bls_twist_point_outside_subgroup,
 )
@@ -117,3 +118,46 @@ def test_g2_team_subgroup_check_matches_plain(shim_libs):
     assert host_shim.call(lib.bls_g2_subgroup_check, q.data_ptr(), q_inf.data_ptr(), ok.data_ptr(), 6, None) == 0
     assert ok.tolist() == [True, True, False, False, False, True]
     assert torch.equal(ok, K4.g2_subgroup_check_plain(q, q_inf))
+
+
+@pytest.mark.parametrize(
+    "group, case, n, k, pads",
+    [
+        # k = 128: the first level on threads (affine, mixed and general
+        # additions, a doubling, P + (-P), pads), then six team levels
+        ("g1", "edge", 0, 128, 8),
+        # short segments: every level on teams; k = 1 and 2
+        ("g1", "affine", 3, 8, 2),
+        ("g1", "jacobian", 2, 1, 0),
+        ("g1", "jacobian", 2, 2, 0),
+        # a pubkey row as the verifier stages it, long enough to split into
+        # four blocks of 128 and a second pass over their roots
+        ("g1", "affine", 1, 512, 24),
+        # G2 (sub-segments of 8, so [n, 32] takes two passes): the edge
+        # rows, the verifier's row (nb = _pow2(n) with the last lanes
+        # padded), and three passes over 128 points
+        ("g2", "edge", 0, 32, 5),
+        ("g2", "jacobian", 1, 32, 5),
+        ("g2", "jacobian", 1, 128, 3),
+    ],
+)
+def test_segment_sum_matches_plain(shim_libs, group, case, n, k, pads):
+    """The segment sums (sub-segments a block, a thread or a team an
+    addition, the affine first level, a second pass over the blocks'
+    roots) limb-equal to segment_sum_plain's tree, in every case of
+    pt_add (chip_smoke.bls_segment_rows). The scratch is the plan's
+    size, one sentinel point past it left as it was; the plan's passes
+    are the blocks' spans' (G1 128 points, G2 8)."""
+    pts = torch.from_numpy(bls_segment_rows(np.random.default_rng(24), group, case, n, k, pads))
+    rows = pts.shape[0]
+    passes, scratch = K2.segment_sum_plan(shim_libs["g"], group, rows, k)
+    span, want = {"g1": 128, "g2": 8}[group], 1
+    while k > span:
+        k, want = k // span, want + 1
+    assert passes == want
+    out = torch.full((rows, *pts.shape[2:]), -1, dtype=torch.int64)
+    buf = torch.full((scratch + 1, *pts.shape[2:]), -7, dtype=torch.int64)
+    fn = getattr(shim_libs["g"], f"bls_{group}_segment_sum")
+    assert host_shim.call(fn, pts.data_ptr(), buf.data_ptr(), out.data_ptr(), rows, pts.shape[1], None) == 0
+    assert torch.equal(out, K2.segment_sum_plain(group, pts))
+    assert buf[scratch].eq(-7).all()
