@@ -156,9 +156,9 @@ BLS_FQ_MULS = {
     "g2_add": 43,
     "g2_madd": 29,  # 7M + 4S, an affine addend
     "g2_aadd": 16,  # 4M + 2S, both affine
-    # a^(p-2), Fermat's chain, as K9 (csrc/msm.cu) inverts; the
-    # conversions to affine count their binary inversion's own work
-    # (_binary_inv_ops)
+    # a^(p-2), Fermat's chain: K9 fixed-base's bound counts its shared
+    # inversions so; the conversions to affine and K9's table count the
+    # binary inversion's own work (_binary_inv_ops)
     "fq_inv": 381,
     "subgroup_check": 1166,  # per point
     "miller_steps": 1780,  # per pair: 63 doubling steps (25), 5 addition steps (41)
@@ -719,6 +719,17 @@ def msm_edge_case(rng: np.random.Generator, points: list) -> tuple[list, list[in
         pts[3], sc[3] = pts[2], sc[2]
         pts[7], sc[7] = pt_neg(FQ, pts[6]), sc[6]
     return pts, sc
+
+
+def wide_edge_scalars() -> list[int]:
+    """Scalars at the 256-bit ladder's edges: r - 1, 0, 1, r - 2, 2^255
+    mod r; 2^254 (5-bit digits: -16 at window 50, and the top one, 1 at
+    window 51, carried from the bit below it), 2^251 (4-bit digits: -8 at
+    window 62, 1 at window 63 by its carry) and 2^252 - 1 (4-bit digits:
+    -1, 62 zeros, 1 carried on top: doublings alone between)."""
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+
+    return [R - 1, 0, 1, R - 2, (1 << 255) % R, 1 << 254, 1 << 251, (1 << 252) - 1]
 
 
 def bls_block(state, types, E, spec, seed: int) -> dict:
@@ -2432,11 +2443,17 @@ KZG_KERNELS = {
 
 
 def kzg_counts() -> dict:
-    return {n: mod.COUNTS[n] for n, (mod, _, _) in KZG_KERNELS.items()} | {"multi_pairing": k_pair.COUNTS["multi_pairing"]}
+    """The KZG kernels' counts, with the K2 and K4 kernels that the KZG
+    engine also launches: K9's table ends in K2's g1_to_affine, and the
+    proof checks run K4's multi-pairing."""
+    return {n: mod.COUNTS[n] for n, (mod, _, _) in KZG_KERNELS.items()} | {
+        "g1_to_affine": k_g.COUNTS["g1_to_affine"],
+        "multi_pairing": k_pair.COUNTS["multi_pairing"],
+    }
 
 
 def reset_kzg_counts() -> None:
-    for mod in (k_fr, k_msm, k_pair):
+    for mod in (k_fr, k_msm, k_g, k_pair):
         mod.reset_counts()
 
 
@@ -2510,14 +2527,19 @@ def msm_fq_muls(scalars: list[int], bits: int = 255) -> dict:
     return {"window": best[0], "fq_muls": best[1], "fixed_fq_muls": fixed}
 
 
-def msm_table_fq_muls(n: int) -> int:
-    """The least Fq multiplications of the fixed-base table of n affine
-    points: 31 windows of 8 doublings each (the first from an affine
-    point), then each of the 31n new entries made affine by one batch
-    inversion over all of them (3 products an entry and one inversion)
-    and 4 products (Z^-2, Z^-3, x, y)."""
+def msm_table_work(walk: torch.Tensor) -> tuple[int, int, int]:
+    """The least work of the fixed-base table of n affine points, from
+    this run's doubling walk ([32, n, 3, 12] Jacobian, window 0 the
+    points): 31 windows of 8 doublings each (the first from an affine
+    point), then the 31n new entries made affine by one batch inversion
+    over the live ones (``_to_affine_work``: 3 products an entry, 4 a lane
+    for Z^-2, Z^-3, x, y, and the binary Euclid's own work on the product
+    of their Z, as the conversions to affine count it). Returns (Fq
+    products, the inversion's 32-bit multiplies, its other operations)."""
     m = BLS_FQ_MULS
-    return n * (m["g1_mdbl"] + (31 * 8 - 1) * m["g1_dbl"] + 31 * (3 + 4)) + m["fq_inv"]
+    n = walk.shape[1]
+    muls, inv_muls, inv_ops = _to_affine_work("g1", walk[1:].reshape(-1, 3, 12))
+    return n * (m["g1_mdbl"] + (31 * 8 - 1) * m["g1_dbl"]) + muls, inv_muls, inv_ops
 
 
 def _ptxas_of(lib, *kernels: str) -> dict:
@@ -2616,6 +2638,12 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
     for part, got_t, want_t in zip(("xy", "inf"), table, plain_table):
         if not torch.equal(got_t, want_t):
             raise AssertionError(f"msm_table: the {part} differs from its plain version")
+    # the table's own kernel, the doubling walk, limb for limb
+    walk, walk_inf = k_msm.g1_msm_table_walk(pts_t)
+    plain_walk, plain_walk_inf = k_msm.g1_msm_table_walk_plain(pts_t)
+    if not (torch.equal(walk, plain_walk) and torch.equal(walk_inf, plain_walk_inf)):
+        raise AssertionError("msm_table's doubling walk differs from its plain version")
+    del plain_walk
     host_rows = [0, 1, 2, 3, 6, 7, n - 1]
     xy = table.xy.cpu().numpy()
     for w in (0, 1, 17, k_msm.WINDOWS - 1):
@@ -2624,6 +2652,7 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
             if tuple(k_g.fq_from_limbs(xy[w, i].reshape(2, 12))) != want_xy:
                 raise AssertionError(f"msm_table entry ({w}, {i}) differs from the host's pt_mul")
     table_bytes = pts_t.numel() * 8 + table.xy.numel() * 8 + table.inf.numel()
+    table_muls, *table_inv = msm_table_work(walk)
     out["kernels"][f"msm_table[{n}]"] = {
         "equal_plain": True,
         "equal_host_entries": 4 * len(host_rows),
@@ -2633,8 +2662,12 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
         "plain_ms": plain_table_ms,
         "library_ms": None,
         "table_bytes": table.xy.numel() * 8 + table.inf.numel(),
-        **_bound(msm_table_fq_muls(n), table_bytes),
+        **_bound(table_muls, table_bytes, "fq", *table_inv),
+        # its two launches: the walk, then K2's conversion of its entries
+        "walk_ms": _time_ms(lambda: k_msm.g1_msm_table_walk(pts_t), reps=3, warmup=1),
+        "to_affine_ms": _time_ms(lambda: k_g.to_affine("g1", walk.view(-1, 3, 12)), reps=3, warmup=1),
     }
+    del walk
     least = msm_fq_muls(sc)
     bound_pippenger = _bound(least["fq_muls"], pts_t.numel() * 8 + sc_t.numel() * 4 + 36 * 8)
     bound_fixed = _bound(least["fixed_fq_muls"], table.xy.numel() * 8 + table.inf.numel() + sc_t.numel() * 4 + 36 * 8)
@@ -2914,14 +2947,15 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
     their plain versions on the card (0 rows differing) and to the host:
     the Merkle subtree reduction at 2^20 leaves (three launches: 9, 9 and 2
     levels) and at 8 roots (the fold); the 256-bit G1 ladder at 1, 37 and
-    4096 points with scalars 0, 1 and r - 1 among them, with times, plain
-    times and bounds."""
+    4096 points with the edge scalars of `wide_edge_scalars` among them,
+    on its teams and on the thread layout kept for this comparison (both
+    equal to the plain chain), with times, plain times and bounds."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, pt_eq, pt_mul
     from lighthouse_tpu_torch.crypto.bls12_381.fields import R
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 41)
-    out = {"phase": "sharded_kernel_checks", "kernels": {}}
+    out = {"phase": "sharded_kernel_checks", "kernels": {}, "g1_scalar_mul_wide_layouts_ms": {}}
 
     for n in (SHARDED_LEAVES, 8):
         leaves_np = rng.integers(0, 256, (n, 32), dtype=np.uint8)
@@ -2952,7 +2986,7 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
     setup_pts = kzg._dev.points
     for n in (1, 37, kzg.setup.n):
         sc = fr_scalars(rng, n)
-        sc[: min(n, 3)] = [R - 1, 0, 1][: min(n, 3)]
+        sc[: min(n, 8)] = wide_edge_scalars()[: min(n, 8)]
         if n == kzg.setup.n:
             pt = setup_pts  # the ladder MSM's points
             host_pts = kzg.setup.g1_lagrange
@@ -2988,9 +3022,25 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
                 ladder_msm_ms=_time_ms(lambda: k_msm.g1_msm_ladder(pt, words), reps=3, warmup=1),
             )
         out["kernels"][f"g1_scalar_mul_wide[{n}]"] = case
+        # both layouts (1: the wrapper's teams, 0: a thread a lane), each
+        # equal to the plain chain, timed at the two larger counts
+        for layout, team in (("team", 1), ("thread", 0)):
+            got_l = torch.empty_like(pt)
+
+            def run(team=team, got_l=got_l):
+                k_g.LIB.launch(
+                    "bls_g1_scalar_mul_wide_layout", pt.data_ptr(), words.data_ptr(), got_l.data_ptr(), n, team, device=dev
+                )
+
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(got_l, want):
+                raise AssertionError(f"g1_scalar_mul_wide[{n},{layout}] differs from its plain version")
+            if n > 1:
+                out["g1_scalar_mul_wide_layouts_ms"].setdefault(n, {})[layout] = _time_ms(run, reps=3, warmup=1)
     out["registers"] = {
         "merkle_subtree.cu": _ptxas_of(k_ms.LIB, "merkle_subtree"),
-        "bls381_g.cu": _ptxas_of(k_g.LIB, "scalar_mul_wide"),
+        "bls381_g.cu": _ptxas_of(k_g.LIB, "wide"),
     }
     emit(out)
     return out
@@ -3225,7 +3275,8 @@ def main(argv=None) -> int:
                     "route": "cuda",
                     "source": f"lighthouse_tpu_torch/csrc/{src}",
                     "replaces": replaces,
-                    # K4's multi-pairing also runs the KZG checks of phase 7
+                    # K4's multi-pairing also runs the KZG checks of phase 7,
+                    # K2's g1_to_affine K9's table there
                     "launches": bls_path["launches"][name] + blob_path["launches"].get(name, 0),
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
@@ -3322,6 +3373,12 @@ def main(argv=None) -> int:
                         if name == "quotient"
                         else {}
                     ),
+                    # the table's two launches apart
+                    **(
+                        {key: kzg_checks["kernels"][case][key] for key in ("walk_ms", "to_affine_ms")}
+                        if name == "msm_table"
+                        else {}
+                    ),
                 }
                 for (name, (_, src, replaces)), case in zip(
                     KZG_KERNELS.items(),
@@ -3340,6 +3397,12 @@ def main(argv=None) -> int:
                     ),
                     **{key: sharded_checks["kernels"][case][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                     "library_ms": None,
+                    # both layouts of the 256-bit ladder
+                    **(
+                        {"ms_by_layout": sharded_checks["g1_scalar_mul_wide_layouts_ms"][kzg.setup.n]}
+                        if name == "g1_scalar_mul_wide"
+                        else {}
+                    ),
                 }
                 for name, src, replaces, launches, case in (
                     (

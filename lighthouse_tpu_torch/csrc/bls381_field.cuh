@@ -32,10 +32,9 @@
 // The code is plain C++ for one thread: a lane's state lives in
 // registers and local memory. The one-thread kernels run a thread per
 // lane; the team kernels (g1_team.cuh, g2_team.cuh, K4's Fq12 rounds) use
-// it for a lane's share of a round. The Fq inverse of K4's final
-// exponentiation and K2's conversions to affine is fp_inv_binary
-// (mont_cs.cuh's binary extended Euclid); the Fermat fp_inv serves K9
-// (msm.cu).
+// it for a lane's share of a round. The one Fq inverse, of K4's final
+// exponentiation and K2's conversions to affine (which also make K9's
+// table affine), is fp_inv_binary (mont_cs.cuh's binary extended Euclid).
 // Outside nvcc (no __CUDACC__) the same functions compile as ordinary
 // host C++.
 #pragma once
@@ -64,7 +63,6 @@ CONSTMEM uint32_t BLS_P[12] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffe
 #define BLS_NINV 0xfffcfffdu
 CONSTMEM uint32_t BLS_ONE[12] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
 // exponents (plain integers)
-CONSTMEM uint32_t BLS_P_MINUS_2[12] = {0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 CONSTMEM uint32_t BLS_SQRT_EXP[12] = {0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
 CONSTMEM uint32_t BLS_B2[2][12] = {{0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u}, {0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u}};
 CONSTMEM uint32_t BLS_G6_1[2][12] = {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}, {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu, 0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u}};
@@ -249,19 +247,6 @@ DEVNI void fp_mul2(fp& r1, const fp& a1, const fp& b1, fp& r2, const fp& a2, con
   fp_reduce_once(r2, u);
 }
 
-// a^e for a plain-integer exponent e of `nbits` bits (12 words).
-DEVNI void fp_pow(fp& r, const fp& a, const uint32_t* e, int nbits) {
-  fp acc;
-  fp_one(acc);
-  for (int i = nbits - 1; i >= 0; i--) {
-    fp_sqr(acc, acc);
-    if ((e[i >> 5] >> (i & 31)) & 1) fp_mul(acc, acc, a);
-  }
-  r = acc;
-}
-
-DEV void fp_inv(fp& r, const fp& a) { fp_pow(r, a, BLS_P_MINUS_2, 381); }  // 0 -> 0
-
 // R^3 mod p, mont_inv_binary's last factor
 CONSTMEM uint32_t BLS_R3[12] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
                                 0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
@@ -269,8 +254,8 @@ CONSTMEM uint32_t BLS_R3[12] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831
 // a^-1 R for a Montgomery a = a R by the binary extended Euclidean
 // algorithm (mont_cs.cuh; variable time: the kernels invert public values),
 // 0 -> 0: at most 2 * 381 short steps of shifts and subtractions, against
-// fp_inv's 381 squarings and ~190 products in one dependent chain. K4's
-// final exponentiation and K2's batch conversion to affine run it.
+// Fermat's a^(p-2), 381 squarings and ~190 products in one dependent chain.
+// K4's final exponentiation and K2's batch conversion to affine run it.
 DEV void fp_inv_binary(fp& r, const fp& a) {
   fp r3;
   fp_const(r3, BLS_R3);

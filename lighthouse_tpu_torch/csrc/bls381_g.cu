@@ -40,11 +40,40 @@
 // count: the crossover lies between 768 and 1,024 lanes. The verifier's
 // chunks (<= 32 lanes) take the team layout, K11's 4,096 lanes the thread
 // one.
+// The 256-bit G1 ladder (bls_g1_scalar_mul_wide, K9's ladder MSM: 4,096
+// lanes) is a signed fixed-window chain. Each scalar is Booth-recoded in
+// the kernel, from its words, into 256 / W + 1 = 65 digits of W = 4 bits
+// (WIDE_W), |d| <= 8, each digit read from W + 1 bits of the words with
+// no carry from digit to digit (wide_digit); a lane builds its table
+// 1 P .. 8 P (4 doublings, 3 additions) and then, from its top nonzero
+// digit's entry (the uniform chain's first addition to the canonical
+// infinity gives it), runs W doublings and one addition of
+// sign(d) T[|d| - 1] a window, none for a zero digit (one in 16): for a
+// 255-bit scalar about 252 doublings and 60 additions, against 256
+// doublings and 256 additions of the bit ladder that it replaces. Every
+// infinity out is the canonical (1, 1, 0). No GLV split:
+// phi(x, y) = (beta x, y) is [lambda] P only on the r-order subgroup, and
+// this function (as the JAX package's batch_g1_scalar_mul) takes any
+// curve point. It runs a 4-lane G1 team a lane (g1_wide_team_kernel,
+// g1_team.cuh narrowed to 4 lanes with a mask of its own, eight teams a
+// warp, 512 warps at 4,096 lanes; the table, accumulator and addend in
+// shared memory, 2.4 KB a team), so a doubling is 3 rounds of products on
+// lanes, an addition 5. A team round issues a whole warp's product for
+// its warp's teams, whose rounds fill at most 4 lanes: 8-lane teams, four
+// a warp, issued twice the product streams for the same chains. On an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 8, 4,096 lanes)
+// 4-lane teams took 2.60 ms at W = 4 and 2.72 at W = 5, 8-lane teams 5.36
+// and 5.35, a thread a lane 5.09 and 5.00 (the bit ladder it replaces:
+// 13.88). The thread layout (scalar_mul_wide_kernel, blocks of one warp,
+// the table in local memory, pt_double / pt_add, the same steps) stays
+// for chip_smoke.py's comparison alone (bls_g1_scalar_mul_wide_layout).
+// The plain version (pt_mul_words) takes the same steps, so the output
+// equals it limb for limb.
 // The conversions to affine (bls_g1_to_affine, bls_g2_to_affine) take
 // Montgomery's batch inversion, one block of LANES_PER_BLOCK (64) threads
 // per 64 lanes, a lane a thread: the verifier's 32 and 33 lanes are one
 // block and one inversion, and larger n runs one inversion a block, the
-// blocks side by side. Each lane forms an Fq value d_i: Z_i for G1, the
+// blocks side by side (K9's table, msm.cu: 2,048 blocks at 4,096 points). Each lane forms an Fq value d_i: Z_i for G1, the
 // norm N(Z_i) = Z_i.c0^2 + Z_i.c1^2 for G2 (Z^-1 = conj(Z) / N(Z); with
 // -1 a non-residue, N(Z) = 0 only at Z = 0), so the scan and the inversion
 // run in Fq for both groups. An infinity lane (d_i = 0) and each lane past
@@ -132,15 +161,11 @@
 //     products, would count a chain this kernel does not run). Its
 //     multiplies are held to the multiply rate and all its operations to
 //     the issue rate, 128 a clock an SM.
-//   * 256-bit ladder (bls_g1_scalar_mul_wide): one thread per point, all
-//     256 bits from the canonical infinity, each a doubling and an
-//     addition whose result is kept only where the bit is set (the JAX
-//     ladder's branchless select: lanes of a warp hold different scalars,
-//     so a branch would diverge on nearly every bit). It computes sum
-//     s_i P_i with the tree sum after it, the function K9 (csrc/msm.cu)
+//   * 256-bit ladder (bls_g1_scalar_mul_wide): it computes sum s_i P_i
+//     with the tree sum after it, the function K9 (csrc/msm.cu)
 //     computes, so its bound is K9's least work for the same scalars
-//     (chip_smoke.msm_fq_muls): what the ladder does beyond it, 256
-//     doublings and 256 additions per point, is what the ratio shows.
+//     (chip_smoke.msm_fq_muls): what the per-point chains do beyond it,
+//     ~256 doublings and ~64 additions a point, is what the ratio shows.
 // chip_smoke.py (BLS_FQ_MULS) turns these counts into a bound: 588 32-bit
 // multiplies per Montgomery multiplication over 64 multiplies per clock
 // per SM (CUDA C++ Programming Guide, compute capability 9.0), 132 SMs,
@@ -217,26 +242,136 @@ g1_ladder_kernel(const long long* pts, const long long* k, long long* out) {
   if (lane < 3) fp_st(out + i * 36 + lane * 12, lane == 0 ? acc.x : lane == 1 ? acc.y : acc.z);
 }
 
-// pts [n, 3, 12] G1; words [n, 8] int32, canonical 256-bit scalars as
-// big-endian 32-bit words (word 0 most significant: ops/fr.py's layout)
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
+// ---------------------------------------------------------------------------
+// The 256-bit G1 ladder (K9 ladder): signed windows of WIDE_W bits
+// ---------------------------------------------------------------------------
+
+// a thread a lane: blocks of one warp spread the 4,096 lanes over 128 SMs
+#define WIDE_THREADS 32
+// G1 teams of 4 lanes (a step uses lanes 0-3), eight a warp and a block
+#define WIDE_TEAM 4
+#define WIDE_TEAMS 8
+// the window: 4 bits (5 measured slower, see the header)
+#define WIDE_W 4
+#define WIDE_WINDOWS (256 / WIDE_W + 1)  // 65
+#define WIDE_ENTRIES (1 << (WIDE_W - 1))  // the table: 1 P .. 8 P
+
+// the scalar's 8 words (big-endian int32, ops/fr.py's layout) as
+// little-endian 32-bit words s[0..7]
+DEV void wide_words(uint32_t* s, const int* words) {
+  for (int j = 0; j < 8; j++) s[j] = (uint32_t)words[7 - j];
+}
+
+// The Booth-recoded digit i of the 256-bit s: from the W + 1 bits
+// i W - 1 .. i W + W - 1 (W = WIDE_W, bit -1 is 0), d_i = (window's low
+// W - 1 bits) + (the bit below the window) - 2^(W-1) (the window's top
+// bit), so |d_i| <= 2^(W-1) and sum_i d_i 2^(i W) = s over WIDE_WINDOWS
+// windows (their top bit lies above bit 255). Each digit is read from
+// the words alone: no carry chain runs from digit to digit.
+DEV int wide_digit(const uint32_t* s, int i) {
+  const int W = WIDE_W;
+  const int lo = i * W - 1;
+  uint32_t f;
+  if (lo < 0) {
+    f = s[0] << 1;
+  } else {
+    const int q = lo >> 5;
+    const unsigned long long two = s[q] | (q < 7 ? (unsigned long long)s[q + 1] << 32 : 0ull);
+    f = (uint32_t)(two >> (lo & 31));
+  }
+  f &= (1u << (W + 1)) - 1;
+  return (int)((f >> 1) & ((1u << (W - 1)) - 1)) + (int)(f & 1u) - (int)((f >> W) << (W - 1));
+}
+
+// the highest window whose digit is not 0, or -1 for s = 0
+DEV int wide_top(const uint32_t* s) {
+  int top = WIDE_WINDOWS - 1;
+  while (top >= 0 && !wide_digit(s, top)) top--;
+  return top;
+}
+
+// sign(d) T[|d| - 1], d != 0: the negation -(X, Y, Z) is (X, -Y, Z)
+DEV void wide_entry(jac<fp>& r, const jac<fp>* tab, int d) {
+  r = tab[(d < 0 ? -d : d) - 1];
+  if (d < 0) fp_neg(r.y, r.y);
+}
+
+// pts [n, 3, 12] G1, words [n, 8] int32 (canonical big-endian 256-bit
+// scalars) -> out [n, 3, 12]: a thread a lane, the table in local memory
+__global__ void __launch_bounds__(WIDE_THREADS)
 scalar_mul_wide_kernel(const long long* pts, const int* words, long long* out, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int p3 = 3 * limbs<fp>::n;
-  jac<fp> p, acc, t;
-  pt_ld(p, pts + i * p3);
-  pt_inf(acc);
-  for (int w = 0; w < 8; w++) {
-    const unsigned word = (unsigned)words[i * 8 + w];
-    for (int b = 31; b >= 0; b--) {
-      pt_double(acc, acc);
-      pt_add(t, acc, p);
-      if ((word >> b) & 1u) acc = t;
+  uint32_t s[8];
+  wide_words(s, words + i * 8);
+  jac<fp> tab[WIDE_ENTRIES], acc;
+  pt_ld(tab[0], pts + i * 36);
+  // m P: 2 (m / 2) P for an even m, (m - 1) P + P for an odd one
+  for (int m = 2; m <= WIDE_ENTRIES; m++) {
+    if (m & 1) pt_add(tab[m - 1], tab[m - 2], tab[0]); else pt_double(tab[m - 1], tab[m / 2 - 1]);
+  }
+  const int top = wide_top(s);
+  if (top < 0) pt_inf(acc); else wide_entry(acc, tab, wide_digit(s, top));
+  for (int w = top - 1; w >= 0; w--) {
+    for (int k = 0; k < WIDE_W; k++) pt_double(acc, acc);
+    const int d = wide_digit(s, w);
+    if (d) {
+      jac<fp> q;
+      wide_entry(q, tab, d);
+      pt_add(acc, acc, q);
     }
   }
-  pt_st(out + i * p3, acc);
+  if (fp_is_zero(acc.z)) pt_inf(acc);  // every infinity out is (1, 1, 0)
+  pt_st(out + i * 36, acc);
 }
+
+// wide_entry on a team
+DEV void team_entry(const G1Team& tm, jac<fp>& r, const jac<fp>* tab, int d) {
+  const jac<fp>& e = tab[(d < 0 ? -d : d) - 1];
+  if (tm.lane == 0) r.x = e.x;
+  if (tm.lane == 1) {
+    if (d < 0) fp_neg(r.y, e.y); else r.y = e.y;
+  }
+  if (tm.lane == 2) r.z = e.z;
+  tm.sync();
+}
+
+// the same on 4-lane teams, a team a lane; a team's table, accumulator
+// and addend in shared memory
+__global__ void __launch_bounds__(WIDE_TEAM * WIDE_TEAMS)
+g1_wide_team_kernel(const long long* pts, const int* words, long long* out, long long n) {
+  __shared__ jac<fp> tabs[WIDE_TEAMS][WIDE_ENTRIES];
+  __shared__ jac<fp> accs[WIDE_TEAMS], adds[WIDE_TEAMS];
+  __shared__ fp slots[WIDE_TEAMS][G1_SLOTS];
+  const int t = threadIdx.x, team = t / WIDE_TEAM;
+  const long long i = blockIdx.x * (long long)WIDE_TEAMS + team;
+  if (i >= n) return;  // the whole team: its barriers name its lanes alone
+  const G1Team tm{t % WIDE_TEAM, slots[team], 0xfu << (t & 28)};
+  jac<fp>* tab = tabs[team];
+  jac<fp>&acc = accs[team], &q = adds[team];
+  uint32_t s[8];
+  wide_words(s, words + i * 8);
+  if (tm.lane < 3) fp_ld(tm.lane == 0 ? tab[0].x : tm.lane == 1 ? tab[0].y : tab[0].z, pts + i * 36 + tm.lane * 12);
+  tm.sync();
+  for (int m = 2; m <= WIDE_ENTRIES; m++) {
+    if (m & 1) team_add(tm, tab[m - 1], tab[m - 2], tab[0]); else team_dbl(tm, tab[m - 1], tab[m / 2 - 1]);
+  }
+  const int top = wide_top(s);
+  if (top < 0) team_inf(tm, acc); else team_entry(tm, acc, tab, wide_digit(s, top));
+  for (int w = top - 1; w >= 0; w--) {
+    for (int k = 0; k < WIDE_W; k++) team_dbl(tm, acc, acc);
+    const int d = wide_digit(s, w);  // the team's own: its lanes agree
+    if (d) {
+      team_entry(tm, q, tab, d);
+      team_add(tm, acc, acc, q);
+    }
+  }
+  const bool at_inf = fp_is_zero(acc.z);
+  tm.sync();  // every lane has read Z before team_inf writes it
+  if (at_inf) team_inf(tm, acc);
+  if (tm.lane < 3) fp_st(out + i * 36 + tm.lane * 12, tm.lane == 0 ? acc.x : tm.lane == 1 ? acc.y : acc.z);
+}
+
 
 // ---------------------------------------------------------------------------
 // Segment sums: a block a sub-segment, a worker an addition at every level
@@ -547,9 +682,22 @@ int bls_g2_scalar_mul(const long long* pts, const long long* k, long long* out, 
   return (int)cudaGetLastError();
 }
 
-int bls_g1_scalar_mul_wide(const long long* pts, const int* words, long long* out, long long n, void* stream) {
-  scalar_mul_wide_kernel<<<grid_for(n), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(pts, words, out, n);
+// team 1: a 4-lane team per lane (bls_g1_scalar_mul_wide's layout), 0: a
+// thread per lane (kept for chip_smoke.py's comparison of the layouts)
+int bls_g1_scalar_mul_wide_layout(const long long* pts, const int* words, long long* out, long long n, int team,
+                                  void* stream) {
+  if (team) {
+    g1_wide_team_kernel<<<(unsigned)((n + WIDE_TEAMS - 1) / WIDE_TEAMS), WIDE_TEAM * WIDE_TEAMS, 0,
+                          (cudaStream_t)stream>>>(pts, words, out, n);
+  } else {
+    scalar_mul_wide_kernel<<<(unsigned)((n + WIDE_THREADS - 1) / WIDE_THREADS), WIDE_THREADS, 0,
+                             (cudaStream_t)stream>>>(pts, words, out, n);
+  }
   return (int)cudaGetLastError();
+}
+
+int bls_g1_scalar_mul_wide(const long long* pts, const int* words, long long* out, long long n, void* stream) {
+  return bls_g1_scalar_mul_wide_layout(pts, words, out, n, 1, stream);
 }
 
 // *scratch: the points of buf that a segment sum over [n, k] needs (in G2

@@ -1,6 +1,8 @@
 // Team G1 arithmetic: a team of lanes works on one Jacobian point over Fq
 // together. K2's G1 ladder (bls381_g.cu g1_ladder_kernel) runs a warp a
-// team on it, K2's segment sums (g1_segment_sum_kernel) 8 lanes a team.
+// team on it, K2's segment sums (g1_segment_sum_kernel) 8 lanes a team,
+// K9's 256-bit ladder (g1_wide_team_kernel) and its table's doubling walk
+// (msm.cu) 4 lanes a team.
 //
 // The G2 team (g2_team.cuh) puts four Fq products on lanes for each Fq2
 // product and forms each coordinate with a subtraction. Over Fq a product
@@ -28,14 +30,15 @@
 #include "g2_team.cuh"
 
 #define G1_TEAM 32
-#define G1_TEAM_PRODUCTS 5
+#define G1_TEAM_PRODUCTS 4
 #define G1_SLOTS 20
 
 struct G1Team {
   int lane;  // 0 .. the team's width - 1
   fp* v;     // [G1_SLOTS]: the rounds' products and the sum steps' values
-  // the team's lanes in its warp: the whole warp (the ladder), or 8 lanes
-  // of it (the segment sums' teams, four a warp: every step uses lanes 0-4)
+  // the team's lanes in its warp: the whole warp (the 64-bit ladder), or
+  // 8 lanes of it (the segment sums') or 4 (the 256-bit ladder's and K9's
+  // table walk's): every step uses lanes 0-3
   unsigned mask = 0xffffffffu;
 #ifdef __CUDACC__
   __device__ void sync() const { __syncwarp(mask); }
@@ -124,7 +127,8 @@ DEVNI void team_dbl(const G1Team& tm, jac<fp>& r, const jac<fp>& p) {
 
 // P + Q with every case of curve.py pt_add (r may be p or q): an infinity
 // operand passes the other through, P == Q doubles, P == -Q gives the
-// canonical infinity; else 5 rounds and 3 sum steps.
+// canonical infinity; else 5 rounds (4, 4, 3, 3 and 2 products) and 3 sum
+// steps.
 DEVNI void team_add(const G1Team& tm, jac<fp>& r, const jac<fp>& p, const jac<fp>& q) {
   // each case waits for every lane to read it before r (p or q) changes
   if (fp_is_zero(p.z)) { tm.sync(); team_copy(tm, r, q); return; }
@@ -132,9 +136,9 @@ DEVNI void team_add(const G1Team& tm, jac<fp>& r, const jac<fp>& p, const jac<fp
   fp* v = tm.v;
   const int k = tm.lane;
   enum { Z1Z1, Z2Z2, Y1Z2, Y2Z1, Z1Z2, U1, U2, S1, S2, H, H2, RR, I, RR2, J, V, ZH, VX, RVX, SJ };
-  team_round(tm, 5, [&](int i, fp*& o, const fp*& a, const fp*& b) {
+  team_round(tm, 4, [&](int i, fp*& o, const fp*& a, const fp*& b) {
     o = &v[Z1Z1 + i];
-    a = i == 0 || i == 4 ? &p.z : i == 1 ? &q.z : i == 2 ? &p.y : &q.y;
+    a = i == 0 ? &p.z : i == 1 ? &q.z : i == 2 ? &p.y : &q.y;
     b = i == 0 || i == 3 ? &p.z : &q.z;
   });
   // U1 = X1 Z2^2, U2 = X2 Z1^2, S1 = (Y1 Z2) Z2^2, S2 = (Y2 Z1) Z1^2
@@ -158,10 +162,12 @@ DEVNI void team_add(const G1Team& tm, jac<fp>& r, const jac<fp>& p, const jac<fp
     fp_add(v[RR], v[RR], v[RR]);
   }
   tm.sync();
-  // I = (2H)^2, rr^2
-  team_round(tm, 2, [&](int i, fp*& o, const fp*& a, const fp*& b) {
-    o = &v[i ? RR2 : I];
-    a = b = &v[i ? RR : H2];
+  // I = (2H)^2, rr^2, Z1 Z2 (here, not in the first round: no round
+  // needs more than 4 lanes)
+  team_round(tm, 3, [&](int i, fp*& o, const fp*& a, const fp*& b) {
+    o = &v[i == 0 ? I : i == 1 ? RR2 : Z1Z2];
+    a = i == 2 ? &p.z : &v[i ? RR : H2];
+    b = i == 2 ? &q.z : a;
   });
   // J = H I, V = U1 I, Z1 Z2 H
   team_round(tm, 3, [&](int i, fp*& o, const fp*& a, const fp*& b) {

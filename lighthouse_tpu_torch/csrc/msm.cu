@@ -6,24 +6,35 @@
 //     _host_digit_prep (:48) and g1_msm_pippenger (:159), the Pippenger
 //     path g1_msm_device (:186) takes on an accelerator.
 // The point arithmetic is pt_add / pt_double of csrc/bls381_field.cuh
-// (Jacobian, complete) and the mixed addition pt_add_affine (with every
-// case: an infinity accumulator, P == Q and P == -Q, which matter because
-// distinct table entries meet in a bucket's sum). Steps 1-3 pair their
-// independent products into one call (fp_mul2: g1_add, g1_double,
-// pt_add_affine), as fp_mul is out of line and a thread's products are
-// its chain: on an H100 that shortened step 3's lone chains by about a
-// third, while the table's doubling walk ran a little faster unpaired.
+// (Jacobian, complete; the table's walk: g1_team.cuh's team_dbl) and
+// the mixed addition pt_add_affine (with every case: an infinity
+// accumulator, P == Q and P == -Q, which matter because distinct table
+// entries meet in a bucket's sum). Steps 1-3 pair their independent
+// products into one call (fp_mul2: g1_add, g1_double, pt_add_affine), as
+// fp_mul is out of line and a thread's products are its chain: on an
+// H100 that shortened step 3's lone chains by about a third.
 //
 // A fixed-base MSM. Every MSM of the KZG engine has the same base, the
 // setup's points, so the doublings of Pippenger's windows are done once
 // per setup, not once per call:
-//   0. msm_table (once per base): one thread per point walks its doubling
-//      chain and keeps each window's multiple T[w][i] = 2^(8w) * P_i,
-//      w < 32; the thread's 32 multiples are made affine with Montgomery's
-//      batch inversion (one Fermat inversion a point) and stored as
-//      [32][n][2][12] limbs with an infinity flag [32][n] (a Z = 0 entry;
-//      its limbs are 0). At n = 4096 the table is 24 MiB, and the KZG
-//      engine keeps it on the card (crypto/kzg _DeviceKzg.table).
+//   0. msm_table (once per base), two launches: the walk, then K2's
+//      conversion to affine. The walk keeps each window's multiple
+//      T[w][i] = 2^(8w) * P_i, w < 32: 248 doublings in one dependent
+//      chain a point, so its time is that chain's latency. A G1 team of
+//      4 lanes a point (g1_team.cuh's team_dbl, 3 rounds of Fq products
+//      on lanes; eight teams a warp, 512 warps at n = 4096) shortens the
+//      chain from a one-thread doubling's 7 products to 3 rounds. On an
+//      NVIDIA H100 80GB HBM3 at 700 W (n = 4096) the walk took 1.80 ms on
+//      4-lane teams, 2.58 on 8-lane ones (four a warp: twice the product
+//      streams) and 4.39 on a thread a point. It writes the
+//      Jacobian entries into a scratch [32][n][36] (37.7 MB at n = 4096)
+//      and the infinity flags [32][n] (Z = 0). Then bls381_g.cu's
+//      to_affine_kernel (ops/msm.py calls K2's bls381.to_affine) makes
+//      all 32n entries affine by Montgomery's batch inversion, one
+//      binary-Euclid inverse a block of 64 entries (no Fermat chain;
+//      0.92 ms at n = 4096), (0, 0) at infinity, as [32][n][2][12] limbs.
+//      At n = 4096 the table is 24 MiB, and the KZG engine keeps it on
+//      the card (crypto/kzg _DeviceKzg.table).
 // Then sum_i s_i P_i = sum_b b * B_b, where B_b sums the table entries
 // (w, i) whose digit d_w(s_i) (8 bits, byte w of s_i) is b: one set of
 // 255 buckets over all 32n entries, and no Horner chain:
@@ -48,9 +59,10 @@
 //      eight trees put ~1,000 additions on one SM: half the MSM's time.)
 //      The longest chain on any thread: the thread's matches, 7 + 7 tree
 //      levels of Jacobian additions, 7 doublings and 3 additions.
-// The plain version (ops/msm.py) takes the same steps in the same order,
-// so both give the same Jacobian coordinates; the table's affine limbs
-// are canonical, so any correct method gives the same table.
+// The plain version (ops/msm.py) takes the same steps 1-3 in the same
+// order, so both give the same Jacobian coordinates; the table's affine
+// limbs are canonical, so any correct method gives the same table (the
+// plain one inverts each point's 32 entries at once, by Fermat).
 //
 // What bounds it: 32-bit multiplies of the point arithmetic (588 per Fq
 // product, bls381_field.cuh). chip_smoke.py (msm_fq_muls) counts two least
@@ -63,8 +75,12 @@
 // table's bytes read once. The kernel adds in Jacobian coordinates (11
 // products a mixed addition) with no batch inversion: it is bound by the
 // latency of its longest chain (a few dozen point operations), not by
-// the card's multipliers.
-#include "bls381_field.cuh"
+// the card's multipliers. The table's least work (chip_smoke.py
+// msm_table_work): 247 doublings a point, the first from an affine point,
+// and one batch inversion over the 31n new entries, 7 products each and
+// one binary inversion of their product by its own 32-bit work; the walk
+// too is bound by its chain's latency.
+#include "g1_team.cuh"
 
 #define MSM_WINDOW 8
 #define MSM_WINDOWS 32   // 8-bit windows over 256-bit scalars
@@ -164,49 +180,6 @@ DEVNI void pt_add_affine(jac<fp>& r, const jac<fp>& p, const fp& x2, const fp& y
   r.x = x3; r.y = y3; r.z = z3;
 }
 
-// step 0 for point i: T[w][i] for w < 32, affine, flagged at infinity.
-// xy [32][n][24] is written twice: Jacobian X, Y first, then affine.
-DEV void msm_table_point(long long* xy, unsigned char* inf, const long long* pts, long long n, long long i) {
-  jac<fp> acc;
-  pt_ld(acc, pts + i * MSM_P3);
-  fp z[MSM_WINDOWS], pre[MSM_WINDOWS];
-  fp one;
-  fp_one(one);
-  for (int w = 0; w < MSM_WINDOWS; w++) {
-    if (w) {
-      for (int k = 0; k < MSM_WINDOW; k++) pt_double(acc, acc);
-    }
-    long long* e = xy + (w * n + i) * MSM_A2;
-    fp_st(e, acc.x);
-    fp_st(e + 12, acc.y);
-    bool at_inf = fp_is_zero(acc.z);
-    inf[w * n + i] = at_inf ? 1 : 0;
-    z[w] = at_inf ? one : acc.z;
-    if (w) fp_mul(pre[w], pre[w - 1], z[w]); else pre[0] = z[0];
-  }
-  fp inv, zi, zi2, t, x, y;
-  fp_inv(inv, pre[MSM_WINDOWS - 1]);
-  for (int w = MSM_WINDOWS - 1; w >= 0; w--) {
-    if (w) {
-      fp_mul(zi, inv, pre[w - 1]);
-      fp_mul(inv, inv, z[w]);
-    } else {
-      zi = inv;
-    }
-    long long* e = xy + (w * n + i) * MSM_A2;
-    if (inf[w * n + i]) {
-      fp_zero(x); fp_zero(y);
-    } else {
-      fp_ld(x, e); fp_ld(y, e + 12);
-      fp_sqr(zi2, zi);
-      fp_mul(x, x, zi2);
-      fp_mul(t, zi2, zi); fp_mul(y, y, t);
-    }
-    fp_st(e, x);
-    fp_st(e + 12, y);
-  }
-}
-
 // the idx-th bucket (in increasing order) among the 128 whose bit k is set
 DEV int msm_bit_bucket(int k, int idx) {
   const int low = idx & ((1 << k) - 1);
@@ -216,14 +189,38 @@ DEV int msm_bit_bucket(int k, int idx) {
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-#define TABLE_THREADS 32
-#define TREE_THREADS 64
+// step 0's walk: G1 teams of 4 lanes (a step uses lanes 0-3), eight a
+// warp and a block
+#define WALK_TEAM 4
+#define WALK_TEAMS 8
 
-__global__ void __launch_bounds__(TABLE_THREADS)
-msm_table_kernel(const long long* pts, long long* xy, unsigned char* inf, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) msm_table_point(xy, inf, pts, n, i);
+// T[w][i] = 2^(8w) P_i for w < 32 into jacs [32][n][36] (Jacobian) and
+// inf [32][n] (Z = 0): a team a point, its accumulator in shared memory
+__global__ void __launch_bounds__(WALK_TEAM * WALK_TEAMS)
+msm_table_walk_kernel(const long long* pts, long long* jacs, unsigned char* inf, long long n) {
+  __shared__ jac<fp> accs[WALK_TEAMS];
+  __shared__ fp slots[WALK_TEAMS][G1_SLOTS];
+  const int t = threadIdx.x, team = t / WALK_TEAM;
+  const long long i = blockIdx.x * (long long)WALK_TEAMS + team;
+  if (i >= n) return;  // the whole team: its barriers name its lanes alone
+  const G1Team tm{t % WALK_TEAM, slots[team], 0xfu << (t & 28)};
+  jac<fp>& acc = accs[team];
+  const int k = tm.lane;
+  if (k < 3) fp_ld(k == 0 ? acc.x : k == 1 ? acc.y : acc.z, pts + i * MSM_P3 + k * 12);
+  tm.sync();
+  for (int w = 0; w < MSM_WINDOWS; w++) {
+    if (w) {
+      for (int d = 0; d < MSM_WINDOW; d++) team_dbl(tm, acc, acc);
+    }
+    // lanes 0-3 store; the next doubling writes acc only after its first
+    // round's barrier, which they reach after their stores
+    long long* e = jacs + (w * n + i) * MSM_P3;
+    if (k < 3) fp_st(e + k * 12, k == 0 ? acc.x : k == 1 ? acc.y : acc.z);
+    if (k == 3) inf[w * n + i] = fp_is_zero(acc.z) ? 1 : 0;
+  }
 }
+
+#define TREE_THREADS 64
 
 // block c, thread b - 1: partial[b - 1][c] = the sum of chunk c's entries
 // whose digit is b, in entry order
@@ -362,10 +359,10 @@ msm_bits_total_kernel(long long* buf, long long* out) {
 
 extern "C" {
 
-// pts [n][36] Jacobian -> xy [32][n][24] affine, inf [32][n]
-int msm_g1_table(const long long* pts, long long* xy, unsigned char* inf, long long n, void* stream) {
-  const unsigned grid = (unsigned)((n + TABLE_THREADS - 1) / TABLE_THREADS);
-  msm_table_kernel<<<grid, TABLE_THREADS, 0, (cudaStream_t)stream>>>(pts, xy, inf, n);
+// step 0's walk: pts [n][36] Jacobian -> jacs [32][n][36], inf [32][n]
+int msm_g1_table_walk(const long long* pts, long long* jacs, unsigned char* inf, long long n, void* stream) {
+  const unsigned grid = (unsigned)((n + WALK_TEAMS - 1) / WALK_TEAMS);
+  msm_table_walk_kernel<<<grid, WALK_TEAM * WALK_TEAMS, 0, (cudaStream_t)stream>>>(pts, jacs, inf, n);
   return (int)cudaGetLastError();
 }
 

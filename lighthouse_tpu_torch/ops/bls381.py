@@ -23,7 +23,10 @@ a block each, and sum the blocks' roots in a further pass: a worker an
 addition at every level, G1's first level a thread an addition (the
 Z = 1 forms where an operand is affine), the other levels on teams
 (g1_team.cuh's, 8 lanes; g2_team.cuh's, a warp), the same tree and limbs
-as the plain version's. The 256-bit ladder runs a thread per lane.
+as the plain version's. The 256-bit ladder is a signed-window chain
+(``pt_mul_words``): Booth digits of 4 bits read from the words, a
+per-lane table 1 P .. 8 P, then 4 doublings and one signed addition a
+window, on a 4-lane team a lane.
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;
@@ -79,6 +82,7 @@ LIB = CudaLibrary(
         "bls_g1_scalar_mul_layout": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g2_scalar_mul": ("p", "p", "p", "i64", "p"),
         "bls_g1_scalar_mul_wide": ("p", "p", "p", "i64", "p"),
+        "bls_g1_scalar_mul_wide_layout": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g1_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g2_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_segment_sum_plan": ("i32", "i64", "i32", "p"),
@@ -441,11 +445,59 @@ def pt_mul_u64(F, p, k: torch.Tensor):
     return pt_ladder(F, p, [((k >> i) & 1).bool() for i in range(63, -1, -1)])
 
 
+# The 256-bit ladder's signed window, in bits (csrc/bls381_g.cu WIDE_W)
+WIDE_WINDOW = 4
+
+
+def wide_digits(words: torch.Tensor) -> torch.Tensor:
+    """The Booth-recoded digits of 256-bit scalars ([lanes, 8] int32
+    big-endian words) -> [lanes, 256 // W + 1] int64 (W = WIDE_WINDOW),
+    least significant window first: d_i = (window i's low W - 1 bits) +
+    (the bit below it) - 2^(W-1) (its top bit), so |d_i| <= 2^(W-1) and
+    sum_i d_i 2^(i W) is the scalar."""
+    w = WIDE_WINDOW
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, device=words.device)
+    bits = ((u.flip(-1)[..., None] >> shifts) & 1).flatten(-2)  # [lanes, 256], bit 0 first
+    nwin = 256 // w + 1
+    # column j is bit j - 1; window i reads columns i W .. i W + W
+    padded = F_.pad(bits, (1, nwin * w - 256))
+    fields = padded.unfold(-1, w + 1, w)
+    weights = torch.tensor([1] + [1 << j for j in range(w - 1)] + [-(1 << (w - 1))], device=words.device)
+    return (fields * weights).sum(-1)
+
+
+def wide_table(F, p):
+    """1 P .. 2^(W-1) P as coordinates stacked on a new first axis:
+    m P = 2 (m / 2) P for an even m, (m - 1) P + P for an odd one."""
+    tab = [p]
+    for m in range(2, (1 << (WIDE_WINDOW - 1)) + 1):
+        tab.append(pt_add(F, tab[m - 2], p) if m & 1 else pt_double(F, tab[m // 2 - 1]))
+    return tuple(torch.stack(c) for c in zip(*tab))
+
+
 def pt_mul_words(F, p, words: torch.Tensor):
     """[k]P for 256-bit scalars k as [lanes, 8] int32 canonical big-endian
-    words (ops/fr.py's layout), over all 256 bits."""
-    u = words.to(torch.int64) & 0xFFFFFFFF
-    return pt_ladder(F, p, [((u[:, w] >> b) & 1).bool() for w in range(8) for b in range(31, -1, -1)])
+    words (ops/fr.py's layout), the kernel's signed-window chain: per
+    window, from the top, WIDE_WINDOW doublings and the addition of the
+    digit's table entry (its negation for a negative digit; none for 0).
+    From the canonical infinity: its doublings keep it and its first
+    addition gives the entry, which is where the kernel starts, at the top
+    nonzero digit. An infinity result is the canonical (1, 1, 0)."""
+    d = F.dims
+    dig = wide_digits(words)
+    tab = wide_table(F, p)
+    lanes = torch.arange(dig.shape[0], device=dig.device)
+    acc = pt_inf(F, lanes.shape, lanes.device)
+    for i in range(dig.shape[1] - 1, -1, -1):
+        for _ in range(WIDE_WINDOW):
+            acc = pt_double(F, acc)
+        di = dig[:, i]
+        x, y, z = (c[(di.abs() - 1).clamp(min=0), lanes] for c in tab)
+        entry = (x, where16(di < 0, F.neg(y), y, d), z)
+        acc = tuple(where16(di != 0, a, b, d) for a, b in zip(pt_add(F, acc, entry), acc))
+    inf = pt_inf(F, lanes.shape, lanes.device)
+    return tuple(where16(is_zero16(acc[2], d), a, b, d) for a, b in zip(inf, acc))
 
 
 def pt_to_affine(F, p):
@@ -559,7 +611,8 @@ def scalar_mul(group: str, pts: torch.Tensor, k: torch.Tensor, layout: str | Non
 
 def scalar_mul_wide(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     """[n, 3, 12] Jacobian G1 points times [n, 8] 256-bit scalars (int32
-    canonical big-endian words) -> [n, 3, 12]."""
+    canonical big-endian words) -> [n, 3, 12]: the signed-window chain of
+    WIDE_WINDOW bits."""
     check_limbs(pts, (3, NLIMB), "pts")
     n = pts.shape[0]
     if pts.dim() != 3:

@@ -13,7 +13,11 @@ infinity flag (``FixedBaseTable``; 24 MiB at 4096 points, kept on the card
 by the KZG engine). ``g1_msm_fixed(table, scalars)`` then sums every table
 entry into one set of 255 buckets by its digit (byte w of s_i) and forms
 sum_b b * B_b with no Horner chain. ``g1_msm(points, scalars)`` is the
-two together, for any points.
+two together, for any points. The table is built on the card in two
+launches: the doubling walk (``g1_msm_table_walk``, 8 doublings a window,
+a team of lanes a point, Jacobian entries into a scratch buffer), then
+K2's batch conversion to affine (``bls381.to_affine``) over all 32n
+entries.
 
 ``g1_msm_ladder`` is the JAX function of the same name (:172), the path
 ``g1_msm_device`` takes on the JAX package's CPU platform: per-point
@@ -65,6 +69,7 @@ from .bls381 import (
     segment_sum,
     segment_sum16,
     segment_sum_plain,
+    to_affine,
     tree_row,
     unpack16,
     where16,
@@ -77,13 +82,15 @@ BUCKETS = 255  # digits 1..255
 CHUNK = 1024  # table entries per block of step 1 (csrc/msm.cu MSM_CHUNK)
 
 # Kernel launches, counted where each kernel launches and nowhere else:
-# "msm" per fixed-base MSM (three kernels), "msm_table" per table build.
+# "msm" per fixed-base MSM (three kernels), "msm_table" per doubling walk
+# (a table build's own kernel; its conversion to affine is K2's
+# "g1_to_affine").
 COUNTS = {"msm": 0, "msm_table": 0}
 
 LIB = CudaLibrary(
     "msm.cu",
     {
-        "msm_g1_table": ("p", "p", "p", "i64", "p"),
+        "msm_g1_table_walk": ("p", "p", "p", "i64", "p"),
         "msm_g1_fixed": ("p", "p", "p", "p", "p", "p", "p", "i64", "i32", "p"),
     },
 )
@@ -158,17 +165,33 @@ def pt_add_affine16(p, x2, y2):
     return tuple(where16(is_zero16(z1), a, b) for a, b in zip((x2, y2, one), out))
 
 
-def g1_msm_table_plain(points: torch.Tensor) -> FixedBaseTable:
-    """The table kernel's steps in PyTorch: per point, the doubling chain
-    (8 doublings a window), then one batch inversion over its 32 Z's."""
-    F = Fq1
+def _walk16(points: torch.Tensor) -> list:
+    """2^(8w) P for w < 32, each by 8 doublings of the one before, as
+    16-bit limb coordinates."""
     acc = unpack16(points, 1)
-    one = F.one(points.device).expand_as(acc[2])
+    walk = [acc]
+    for _ in range(WINDOWS - 1):
+        for _ in range(WINDOW):
+            acc = pt_double(Fq1, acc)
+        walk.append(acc)
+    return walk
+
+
+def g1_msm_table_walk_plain(points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The walk kernel's entries in PyTorch: (T [32, n, 3, 12], inf [32, n])."""
+    walk = _walk16(points)
+    return torch.stack([pack32(p, 1) for p in walk]), torch.stack([is_zero16(p[2]) for p in walk])
+
+
+def g1_msm_table_plain(points: torch.Tensor) -> FixedBaseTable:
+    """The table in PyTorch: per point, the doubling walk (the walk
+    kernel's limbs), then one batch inversion over its 32 Z's (Fermat's).
+    The kernels invert in batches of 64 entries by the binary Euclid;
+    affine limbs are canonical, so the tables are equal byte for byte."""
+    F = Fq1
+    one = F.one(points.device).expand(points.shape[0], -1)
     xs, ys, zs, pre, infs = [], [], [], [], []
-    for w in range(WINDOWS):
-        if w:
-            for _ in range(WINDOW):
-                acc = pt_double(F, acc)
+    for w, acc in enumerate(_walk16(points)):
         at_inf = is_zero16(acc[2])
         z = where16(at_inf, one, acc[2])
         xs.append(acc[0])
@@ -282,16 +305,34 @@ def _check_table(table: FixedBaseTable, scalars: torch.Tensor) -> int:
     return n
 
 
+def g1_msm_table_walk(points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The table's doubling walk: points [n, 3, 12] Jacobian limbs ->
+    (T [32, n, 3, 12] Jacobian, inf [32, n] bool), T[w][i] = 2^(8w) P_i by
+    8 doublings a window (``pt_double``'s limbs). The kernel runs a 4-lane
+    team a point."""
+    n = _check_msm_args(points, None)
+    if points.device.type == "cpu":
+        return g1_msm_table_walk_plain(points)
+    dev = _cuda_ok(points)
+    jac = torch.empty((WINDOWS, n, 3, NLIMB), dtype=torch.int64, device=dev)
+    inf = torch.empty((WINDOWS, n), dtype=torch.bool, device=dev)
+    LIB.launch("msm_g1_table_walk", points.data_ptr(), jac.data_ptr(), inf.data_ptr(), n, device=dev)
+    COUNTS["msm_table"] += 1
+    return jac, inf
+
+
 def g1_msm_table(points: torch.Tensor) -> FixedBaseTable:
-    """The fixed-base table of points [n, 3, 12] Jacobian limbs, n >= 1."""
+    """The fixed-base table of points [n, 3, 12] Jacobian limbs, n >= 1.
+    On the card: the doubling walk (``g1_msm_table_walk``), then K2's
+    batch conversion to affine over its 32n entries (``bls381.to_affine``:
+    one binary inversion a block of 64, (0, 0) at infinity), whose
+    canonical limbs equal the plain version's byte for byte; the Jacobian
+    walk (37.7 MB at n = 4096) is freed on return."""
     n = _check_msm_args(points, None)
     if points.device.type == "cpu":
         return g1_msm_table_plain(points)
-    dev = _cuda_ok(points)
-    xy = torch.empty((WINDOWS, n, 2, NLIMB), dtype=torch.int64, device=dev)
-    inf = torch.empty((WINDOWS, n), dtype=torch.bool, device=dev)
-    LIB.launch("msm_g1_table", points.data_ptr(), xy.data_ptr(), inf.data_ptr(), n, device=dev)
-    COUNTS["msm_table"] += 1
+    jac, inf = g1_msm_table_walk(points)
+    xy = to_affine("g1", jac.view(WINDOWS * n, 3, NLIMB)).view(WINDOWS, n, 2, NLIMB)
     return FixedBaseTable(xy, inf)
 
 

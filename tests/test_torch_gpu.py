@@ -595,6 +595,54 @@ def test_wide_ladder_and_ladder_msm_match_plain_and_host(cuda, n):
     assert pt_eq(FQ, K2.g1_from_limbs(total.cpu().numpy())[0], msm(FQ, pts, sc))
 
 
+@pytest.mark.parametrize("layout", ["thread", "team"])
+def test_wide_ladder_layouts_match_plain(cuda, layout):
+    """The 256-bit ladder on 45 lanes (the last block part full), on its
+    4-lane teams through the wrapper and on the thread layout kept for
+    chip_smoke's comparison (bls_g1_scalar_mul_wide_layout): the edge
+    scalars of chip_smoke.wide_edge_scalars, an infinity point and a
+    point of order 3 among seeded ones, equal to the plain chain and to
+    the host's pt_mul."""
+    from chip_smoke import fr_scalars, wide_edge_scalars
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, inf, pt_eq, pt_mul
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    rng = np.random.default_rng(62)
+    pts = bls_g1_points(rng, 45)
+    sc = wide_edge_scalars() + fr_scalars(rng, 37)
+    pts[9] = inf(FQ)
+    pts[10], sc[10] = bls_g1_point_of_order(rng, 3), 3
+    pt = _g1(pts, cuda)
+    s = K8.as_i32(K8.fr_to_words(sc)).to(cuda)
+    if layout == "team":
+        got = _launched(K2.COUNTS, "g1_scalar_mul_wide", lambda: K2.scalar_mul_wide(pt, s))
+    else:
+        got = torch.empty_like(pt)
+        K2.LIB.launch("bls_g1_scalar_mul_wide_layout", pt.data_ptr(), s.data_ptr(), got.data_ptr(), 45, 0, device=cuda)
+    assert torch.equal(got, K2.scalar_mul_wide_plain(pt, s))
+    for row, p, k in zip(K2.g1_from_limbs(got.cpu().numpy()), pts, sc):
+        assert pt_eq(FQ, row, pt_mul(FQ, p, k))
+
+
+def test_msm_table_walk_matches_plain(cuda):
+    """K9's table on 37 points (an infinity among them): the doubling walk
+    limb-equal to its plain version, and the table after K2's conversion
+    equal to the plain one."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, inf
+    from lighthouse_tpu_torch.ops import msm as K9
+
+    pts = bls_g1_points(np.random.default_rng(63), 37)
+    pts[20] = inf(FQ)
+    pt = _g1(pts, cuda)
+    jac, flags = _launched(K9.COUNTS, "msm_table", lambda: K9.g1_msm_table_walk(pt))
+    want_jac, want_inf = K9.g1_msm_table_walk_plain(pt)
+    assert torch.equal(jac, want_jac) and torch.equal(flags, want_inf)
+    table = K9.g1_msm_table(pt)
+    plain = K9.g1_msm_table_plain(pt)
+    assert torch.equal(table.xy, plain.xy) and torch.equal(table.inf, plain.inf)
+    assert bool(flags[:, 20].all()) and int(flags.sum()) == K9.WINDOWS
+
+
 def test_sharded_rlc_g1_on_a_one_rank_nccl_group(cuda, tmp_path):
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, inf, pt_add, pt_eq, pt_mul
     from lighthouse_tpu_torch.ops import bls381_sharded as K11

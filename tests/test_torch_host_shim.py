@@ -1,9 +1,12 @@
 """K2's warp-team G1 ladder, K2's batch conversions to affine, K2's
-segment sums and K4's warp-team subgroup check, built as host C++ through
+segment sums, K4's warp-team subgroup check, K9's 256-bit ladder (its
+signed-window chain on its teams and on the thread layout) and K9's table (the
+doubling walk, then K2's conversion to affine), built as host C++ through
 the shim of lighthouse_tpu_torch.analysis.host_shim (a block's threads as
 std::threads, __syncwarp and __syncthreads as barriers), against their
-plain PyTorch versions on the CPU: limb for limb (the ladder, the
-conversions, the sums), verdict for verdict (the check). This runs the kernels' own
+plain PyTorch versions on the CPU: limb for limb (the ladders, the
+conversions, the sums), byte for byte (the table), verdict for verdict
+(the check). This runs the kernels' own
 team and block code, branches and barriers on the CPU; the card's run is
 tests/test_torch_gpu.py's. Skips only where there is no g++.
 """
@@ -22,11 +25,15 @@ from chip_smoke import (
     bls_segment_rows,
     bls_twist_point_of_order,
     bls_twist_point_outside_subgroup,
+    fr_scalars,
+    wide_edge_scalars,
 )
 from lighthouse_tpu_torch.analysis import host_shim
 from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, inf, to_affine
 from lighthouse_tpu_torch.ops import bls381 as K2
 from lighthouse_tpu_torch.ops import bls381_pairing as K4
+from lighthouse_tpu_torch.ops import fr as K8
+from lighthouse_tpu_torch.ops import msm as K9
 
 
 @pytest.fixture(scope="module")
@@ -34,11 +41,13 @@ def shim_libs(tmp_path_factory):
     if host_shim.gxx() is None:
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("host_shim")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = dict(zip(("g", "pairing"), pool.map(lambda s: host_shim.build(s, out), ("bls381_g.cu", "bls381_pairing.cu"))))
+    sources = {"g": "bls381_g.cu", "pairing": "bls381_pairing.cu", "msm": "msm.cu"}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(lambda s: host_shim.build(s, out), sources.values())))
     return {
         "g": host_shim.load(built["g"], K2.LIB.functions),
         "pairing": host_shim.load(built["pairing"], K4.LIB.functions),
+        "msm": host_shim.load(built["msm"], K9.LIB.functions),
     }
 
 
@@ -161,3 +170,79 @@ def test_segment_sum_matches_plain(shim_libs, group, case, n, k, pads):
     assert host_shim.call(fn, pts.data_ptr(), buf.data_ptr(), out.data_ptr(), rows, pts.shape[1], None) == 0
     assert torch.equal(out, K2.segment_sum_plain(group, pts))
     assert buf[scratch].eq(-7).all()
+
+
+def _wide_lanes():
+    """40 lanes: wide_edge_scalars on Jacobian points (Z != 1); an affine
+    point (Z = 1); an infinity point under a seeded scalar, 1 and 0; a
+    point of order 3 under 3 (its table's 3P and the chain's P == -Q give
+    infinities), 4, 2^251 and a seeded scalar (P == Q and P == -Q meet in
+    the additions); seeded scalars on the rest."""
+    rng = np.random.default_rng(25)
+    n = 40
+    pts = bls_g1_points(rng, n)
+    sc = wide_edge_scalars() + fr_scalars(rng, n - 8)
+    pts[8] = (*to_affine(FQ, pts[8]), 1)
+    for j, k in zip((9, 10, 11), (sc[9], 1, 0)):
+        pts[j], sc[j] = inf(FQ), k
+    p3 = bls_g1_point_of_order(rng, 3)
+    for j, k in zip((12, 13, 14, 15), (3, 4, 1 << 251, sc[15])):
+        pts[j], sc[j] = p3, k
+    return torch.from_numpy(K2.g1_to_limbs(pts)), K8.as_i32(K8.fr_to_words(sc))
+
+
+@pytest.fixture(scope="module")
+def wide_plain():
+    pts, words = _wide_lanes()
+    return pts, words, K2.scalar_mul_wide_plain(pts, words)
+
+
+@pytest.mark.parametrize("layout", ["thread", "team"])
+def test_wide_ladder_matches_plain(shim_libs, wide_plain, layout):
+    """K9's 256-bit ladder, the signed-window chain (Booth digits of 4 bits
+    from the words, a table of 1 P .. 8 P, 4 doublings and one signed
+    addition a window) on its 4-lane teams (bls_g1_scalar_mul_wide: their
+    own masks, 8 a block, the last block part full) and on the thread
+    layout kept for comparison (bls_g1_scalar_mul_wide_layout, blocks of
+    32), limb-equal to the plain chain at the edge lanes of _wide_lanes;
+    every infinity out canonical."""
+    pts, words, want = wide_plain
+    lib = shim_libs["g"]
+    out = torch.full_like(pts, -1)
+    args = (pts.data_ptr(), words.data_ptr(), out.data_ptr(), pts.shape[0])
+    if layout == "team":
+        assert host_shim.call(lib.bls_g1_scalar_mul_wide, *args, None) == 0
+    else:
+        assert host_shim.call(lib.bls_g1_scalar_mul_wide_layout, *args, 0, None) == 0
+    assert torch.equal(out, want)
+    infinity = ~out[:, 2].any(-1)
+    assert infinity[[1, 9, 10, 11, 12]].all()  # k = 0, an infinity point, 3 P3
+    assert torch.equal(out[infinity], torch.from_numpy(K2.g1_to_limbs([inf(FQ)] * int(infinity.sum()))))
+
+
+@pytest.mark.parametrize("n", [9, 17])
+def test_msm_table_walk_and_affine_match_plain(shim_libs, n):
+    """K9's table on 9 and 17 points (two and three blocks of 8 teams, the
+    last part full): the doubling walk on 4-lane teams (Jacobian
+    2^(8w) P_i and the infinity flags) limb-equal to its plain version,
+    then K2's batch conversion to affine over its 32n entries, byte-equal
+    to g1_msm_table_plain; an infinity point, an affine point (Z = 1) and
+    a point of order 3 among them."""
+    rng = np.random.default_rng(26)
+    pts = bls_g1_points(rng, n)
+    pts[2] = inf(FQ)
+    pts[5] = (*to_affine(FQ, pts[5]), 1)
+    pts[7] = bls_g1_point_of_order(rng, 3)
+    p = torch.from_numpy(K2.g1_to_limbs(pts))
+    jac = torch.full((K9.WINDOWS, n, 3, 12), -1, dtype=torch.int64)
+    flags = torch.zeros((K9.WINDOWS, n), dtype=torch.bool)
+    walk = shim_libs["msm"].msm_g1_table_walk
+    assert host_shim.call(walk, p.data_ptr(), jac.data_ptr(), flags.data_ptr(), n, None) == 0
+    want_jac, want_inf = K9.g1_msm_table_walk_plain(p)
+    assert torch.equal(jac, want_jac) and torch.equal(flags, want_inf)
+    xy = torch.full((K9.WINDOWS * n, 2, 12), -1, dtype=torch.int64)
+    assert host_shim.call(shim_libs["g"].bls_g1_to_affine, jac.data_ptr(), xy.data_ptr(), K9.WINDOWS * n, None) == 0
+    want = K9.g1_msm_table_plain(p)
+    assert torch.equal(xy.view(K9.WINDOWS, n, 2, 12), want.xy)
+    assert torch.equal(flags, want.inf)
+    assert flags[:, 2].all() and flags.sum() == K9.WINDOWS

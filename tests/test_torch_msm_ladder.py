@@ -72,3 +72,48 @@ def test_wide_ladder_edge_scalars_equal_host():
     got = K2.scalar_mul_wide(torch.from_numpy(K2.g1_to_limbs(pts)), K8.as_i32(K8.fr_to_words(scalars)))
     for row, p, k in zip(got, pts, scalars):
         assert _affine(row) == to_affine(FQ, pt_mul(FQ, p, k)), k
+
+
+def test_wide_chain_equals_host_and_jax_ladder():
+    """The signed-window chain (`scalar_mul_wide_plain`,
+    the kernels' steps) at 8 lanes, chip_smoke.wide_edge_scalars on points
+    with Z != 1 (0, 1, r - 1, r - 2, 2^255 mod r and the recodings'
+    carries into their top digits), against the host's pt_mul and the
+    JAX package's 256-bit ladder (`batch_g1_scalar_mul`, the per-point
+    step of its `g1_msm_ladder`), in affine integers (None at infinity)."""
+    from chip_smoke import bls_g1_points, wide_edge_scalars
+    from lighthouse_tpu.ops.bls381 import batch_g1_scalar_mul, g1_points_from_device, g1_points_to_device, scalars_to_bits
+
+    scalars = wide_edge_scalars()
+    pts = bls_g1_points(np.random.default_rng(7), len(scalars))
+    got = K2.scalar_mul_wide_plain(torch.from_numpy(K2.g1_to_limbs(pts)), K8.as_i32(K8.fr_to_words(scalars)))
+    rows = [to_affine(FQ, row) for row in K2.g1_from_limbs(got.numpy())]
+    jax_rows = g1_points_from_device(batch_g1_scalar_mul(*g1_points_to_device(pts), scalars_to_bits(scalars, 256)))
+    assert rows == [to_affine(FQ, pt_mul(FQ, p, k)) for p, k in zip(pts, scalars)]
+    assert rows == [jax_to_affine(JFQ, row) for row in jax_rows]
+    assert rows[1] is None and K2.g1_from_limbs(got[1].numpy())[0] == (1, 1, 0)
+
+
+@pytest.mark.parametrize("case", ["edge", "seeded"])
+def test_wide_digits_recode_the_scalar(case):
+    """The Booth digits of `wide_digits` (the kernel's `wide_digit`): 65
+    signed digits of 4 bits, |d| <= 8, that sum back to the scalar and
+    equal the recoding of its integer bit by bit; on
+    chip_smoke.wide_edge_scalars and on 64 seeded scalars below r."""
+    from chip_smoke import fr_scalars, wide_edge_scalars
+
+    scalars = wide_edge_scalars() if case == "edge" else fr_scalars(np.random.default_rng(8), 64)
+    dig = K2.wide_digits(K8.as_i32(K8.fr_to_words(scalars)))
+    w = K2.WIDE_WINDOW
+    assert dig.shape == (len(scalars), 256 // w + 1)
+    assert int(dig.abs().max()) <= 1 << (w - 1)
+
+    def bit(k, j):
+        return (k >> j) & 1 if j >= 0 else 0
+
+    for row, k in zip(dig.tolist(), scalars):
+        assert sum(d << (i * w) for i, d in enumerate(row)) == k
+        assert row == [
+            sum(bit(k, i * w + j) << j for j in range(w - 1)) + bit(k, i * w - 1) - (bit(k, i * w + w - 1) << (w - 1))
+            for i in range(256 // w + 1)
+        ]
