@@ -32,7 +32,10 @@ each, any failure ends the run with a non-zero exit code:
    the domain and on it) and the G1 Pippenger MSM over the 4096 setup
    points with edge cases, each equal to its plain version and, for one
    case, to the host; then the multi-device step's kernels: the Merkle
-   subtree reduction at 2^20 leaves and at 8 roots, and the 256-bit G1
+   subtree reduction at 2^20 leaves (one launch; the kernel it replaced,
+   three launches, each timed apart) and at 8 roots, K11's 64-bit chain
+   at 1, 37 and 4,096 lanes (scalars 0, 2^63 and 2^64 - 1 among them;
+   K2's thread layout timed on the same 4,096 lanes) and the 256-bit G1
    ladder at 1, 37 and 4096 points (scalars 0, 1 and r - 1 among them),
    each equal to its plain version and to the host;
 4. main path: the state-root stage of block import. A mainnet-preset Deneb
@@ -76,7 +79,8 @@ each, any failure ends the run with a non-zero exit code:
    its length mixed in), equal to the state's own validators root and a
    hashlib fold; (b) the sharded RLC sum of 4,096 seeded G1 points (a
    range-sync segment's 32 blocks of 128 attestation sets) with 64-bit
-   scalars, equal to its plain version and, on 131 points, to the host;
+   scalars (K11's 64-bit chain, then K2's segment sums), equal to its
+   plain version and, on 131 points, to the host;
    (c) the ladder MSM of one seeded blob over the ceremony's 4,096
    Lagrange points, equal to K9 Pippenger's commitment and the plain
    ladder; (d) ``entry.dryrun_multichip(1, device="cuda")``.
@@ -2942,14 +2946,113 @@ def _rows_differing(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got != want).reshape(got.shape[0], -1).any(-1).sum())
 
 
+def _gpu_ms(fns, reps: int = 20) -> list[float]:
+    """Median milliseconds of each of fns (launches in that order), by CUDA
+    events recorded between them, over `reps` rounds. Each round starts
+    behind a spin kernel (torch.cuda._sleep, ~1 ms), so the host has
+    enqueued every launch before the first one runs: the times are the
+    card's alone, the host's launch overhead hidden."""
+    rounds = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+        events[0].record()
+        for fn, ev in zip(fns, events[1:]):
+            fn()
+            ev.record()
+        torch.cuda.synchronize()
+        rounds.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    return [float(np.median(col)) for col in zip(*rounds)]
+
+
+def merkle_levels_split(leaves: torch.Tensor) -> dict:
+    """The kernel K10's merkle_subtree_roots replaced (merkle_subtree_levels:
+    9 levels a launch, the levels in shared memory) over these leaves: each
+    of its launches timed apart in one sequence (`_gpu_ms`), and its root
+    equal to the plain version's."""
+    dev = leaves.device
+    nodes, depth, launches, fns = leaves, (leaves.shape[0] - 1).bit_length(), [], []
+    while depth:
+        levels = min(depth, 9)
+        out = torch.empty((nodes.shape[0] >> levels, 32), dtype=torch.uint8, device=dev)
+
+        def run(nodes=nodes, out=out, levels=levels):
+            k_ms.LIB.launch("merkle_subtree_levels", nodes.data_ptr(), out.data_ptr(), nodes.shape[0], levels, device=dev)
+
+        fns.append(run)
+        launches.append({"levels": levels, "blocks": int(out.shape[0]), "threads": 1 << (levels - 1)})
+        nodes, depth = out, depth - levels
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    if not torch.equal(nodes, _subtree_root_plain(leaves)):
+        raise AssertionError(f"merkle_subtree_levels differs from the plain version at {leaves.shape[0]} leaves")
+    for launch, ms in zip(launches, _gpu_ms(fns)):
+        launch["gpu_ms"] = ms
+    return {"launches": launches, "gpu_ms": sum(x["gpu_ms"] for x in launches), "ms": _time_ms(lambda: [f() for f in fns], reps=20)}
+
+
+# K10's launch plans timed at 2^20 leaves beside the wrapper's: (leaf
+# levels, threads a block)
+MERKLE_PLANS = ((4, 512), (4, 256), (3, 512), (2, 512))
+
+
+def merkle_plans_ms(leaves: torch.Tensor, want: torch.Tensor) -> dict:
+    """K10's kernel over these leaves in one launch under each of
+    MERKLE_PLANS, each root equal to `want`, with its card time
+    (`_gpu_ms`)."""
+    dev = leaves.device
+    levels = (leaves.shape[0] - 1).bit_length()
+    counters = torch.empty(1, dtype=torch.int32, device=dev)
+    out_ms = {}
+    for leaf, threads in MERKLE_PLANS:
+        out = torch.empty((1, 32), dtype=torch.uint8, device=dev)
+        roots = torch.empty(((1 << (levels - leaf)) // threads, 32), dtype=torch.uint8, device=dev)
+
+        def run(leaf=leaf, threads=threads, out=out, roots=roots):
+            k_ms.LIB.launch(
+                "merkle_subtree_roots", leaves.data_ptr(), out.data_ptr(), roots.data_ptr(), counters.data_ptr(),
+                leaves.shape[0], levels, leaf, threads, device=dev,
+            )
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"merkle_subtree_roots under the plan ({leaf}, {threads}) differs from the plain root")
+        out_ms[f"{leaf},{threads}"] = _gpu_ms([run])[0]
+    return out_ms
+
+
+def rlc_chain_edge_case(rng: np.random.Generator, n: int) -> tuple[list, list[int]]:
+    """K11's ladder inputs at n lanes: seeded points (131 distinct, repeated)
+    and 64-bit draws, with the chain's edge scalars 0, 1, 15, 16, 2^63 - 1,
+    2^63 and 2^64 - 1 in the first lanes (2^63 and above arrive as negative
+    int64), then an affine point (Z = 1), an infinity point and a point of
+    order 3 under 3 (its table's 3 P is infinity) where n allows."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, inf, to_affine
+
+    base = bls_g1_points(rng, min(n, RLC_HOST_POINTS))
+    pts = (base * -(-n // len(base)))[:n]
+    scalars = ([0, 1, 15, 16, 2**63 - 1, 2**63, 2**64 - 1] + bls_scalars(rng, n))[:n]
+    if n > 9:
+        pts[7] = (*to_affine(FQ, pts[7]), 1)
+        pts[8] = inf(FQ)
+        pts[9], scalars[9] = bls_g1_point_of_order(rng, 3), 3
+    return pts, scalars
+
+
 def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
     """The multi-device step's kernels at its main path's shapes, equal to
     their plain versions on the card (0 rows differing) and to the host:
-    the Merkle subtree reduction at 2^20 leaves (three launches: 9, 9 and 2
-    levels) and at 8 roots (the fold); the 256-bit G1 ladder at 1, 37 and
-    4096 points with the edge scalars of `wide_edge_scalars` among them,
-    on its teams and on the thread layout kept for this comparison (both
-    equal to the plain chain), with times, plain times and bounds."""
+    the Merkle subtree reduction at 2^20 leaves (one launch) and at 8 roots
+    (the fold), with the replaced kernel's three launches at 2^20 timed
+    apart; K11's 64-bit chain at 1, 37 and 4,096 lanes with the edge
+    scalars of `rlc_chain_edge_case`, timed at 4,096 beside K2's thread
+    layout on the same lanes; the 256-bit G1 ladder at 1, 37 and 4096
+    points with the edge scalars of `wide_edge_scalars` among them, on its
+    teams and on the thread layout kept for this comparison (both equal to
+    the plain chain); with times, plain times and bounds."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, pt_eq, pt_mul
     from lighthouse_tpu_torch.crypto.bls12_381.fields import R
 
@@ -2960,7 +3063,11 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
     for n in (SHARDED_LEAVES, 8):
         leaves_np = rng.integers(0, 256, (n, 32), dtype=np.uint8)
         leaves = torch.from_numpy(leaves_np).to(dev)
+        # the replaced kernel first, each launch apart
+        replaced = merkle_levels_split(leaves)
+        k_ms.reset_counts()
         got = k_ms.subtree_root(leaves)
+        launches = k_ms.COUNTS["merkle_subtree_roots"]
         want, plain_ms = _plain_ms(lambda: _subtree_root_plain(leaves))
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
@@ -2971,17 +3078,59 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
             fold = hash_rows_hashlib(fold.reshape(-1, 64))
         if not np.array_equal(got.cpu().numpy()[0], fold[0]):
             raise AssertionError(f"merkle_subtree_roots differs from a hashlib fold at {n} leaves")
+        leaf, threads = k_ms.subtree_plan((n - 1).bit_length())
         out["kernels"][f"merkle_subtree_roots[{n}]"] = {
             "equal_plain": True,
             "equal_hashlib_fold": True,
             "max_abs_err": err,
             "rows_differing": _rows_differing(got, want),
-            "launches_per_call": -(-(n - 1).bit_length() // k_ms.MAX_LEVELS),
+            "launches_per_call": launches,
+            "plan": {"leaf_levels": leaf, "threads": threads},
             "ms": _time_ms(lambda: k_ms.subtree_root(leaves), reps=20 if n > 8 else 50),
+            "gpu_ms": _gpu_ms([lambda: k_ms.subtree_root(leaves)])[0],
+            "replaced_ms": replaced["ms"],
+            "replaced_gpu_ms": replaced["gpu_ms"],
+            "replaced_launches": replaced["launches"],
+            **({"plans_gpu_ms": merkle_plans_ms(leaves, want)} if n == SHARDED_LEAVES else {}),
             "plain_ms": plain_ms,
             "library_ms": None,
             **_merkle_bound(n),
         }
+
+    # K11's 64-bit chain, its plain version's steps and the host's points
+    for n in (1, 37, RLC_POINTS):
+        host_pts, sc = rlc_chain_edge_case(rng, n)
+        pt = torch.from_numpy(k_g.g1_to_limbs(host_pts)).to(dev)
+        ks = k_g.scalars_to_tensor(sc).to(dev)
+        got = k_g.scalar_mul_wide64(pt, ks)
+        want, plain_ms = _plain_ms(lambda: k_g.scalar_mul_wide64_plain(pt, ks))
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"g1_scalar_mul_wide64 differs from its plain version at {n} lanes (max_abs_err {err})")
+        host_rows = min(n, 37)
+        for row, p, k in zip(k_g.g1_from_limbs(got[:host_rows].cpu().numpy()), host_pts, sc):
+            if not pt_eq(FQ, row, pt_mul(FQ, p, k)):
+                raise AssertionError(f"g1_scalar_mul_wide64 differs from the host pt_mul (k = {k})")
+        case = {
+            "equal_plain": True,
+            "equal_host_rows": host_rows,
+            "max_abs_err": err,
+            "rows_differing": _rows_differing(got, want),
+            "ms": _time_ms(lambda: k_g.scalar_mul_wide64(pt, ks), reps=5, warmup=1),
+            "plain_ms": plain_ms,
+            "library_ms": None,
+        }
+        if n == RLC_POINTS:
+            # the RLC sum is the function: Pippenger's least work bounds it
+            # (as K11's); K2's thread layout on the same lanes beside it
+            least = msm_fq_muls(sc, bits=64)
+            case.update(
+                _bound(least["fq_muls"], pt.numel() * 8 + ks.numel() * 8 + 36 * 8),
+                best_window=least["window"],
+                k2_thread_ms=_time_ms(lambda: k_g.scalar_mul("g1", pt, ks, layout="thread"), reps=5, warmup=1),
+            )
+        out["kernels"][f"g1_scalar_mul_wide64[{n}]"] = case
 
     setup_pts = kzg._dev.points
     for n in (1, 37, kzg.setup.n):
@@ -3039,7 +3188,7 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
             if n > 1:
                 out["g1_scalar_mul_wide_layouts_ms"].setdefault(n, {})[layout] = _time_ms(run, reps=3, warmup=1)
     out["registers"] = {
-        "merkle_subtree.cu": _ptxas_of(k_ms.LIB, "merkle_subtree"),
+        "merkle_subtree.cu": _ptxas_of(k_ms.LIB, "merkle"),
         "bls381_g.cu": _ptxas_of(k_g.LIB, "wide"),
     }
     emit(out)
@@ -3140,9 +3289,9 @@ def phase_sharded_main_path(state, kzg, seed: int) -> dict:
         k_g.reset_counts()
         got = k_rlc.sharded_rlc_g1(pts, ks, mesh)
         torch.cuda.synchronize()
-        launches_b = {n: k_g.COUNTS[n] for n in ("g1_scalar_mul", "g1_segment_sum")}
+        launches_b = {n: k_g.COUNTS[n] for n in ("g1_scalar_mul_wide64", "g1_segment_sum")}
         if min(launches_b.values()) <= 0:
-            raise AssertionError(f"(b) the sharded RLC sum missed a K2 kernel: {launches_b}")
+            raise AssertionError(f"(b) the sharded RLC sum missed a kernel: {launches_b}")
         want, plain_ms = _plain_ms(lambda: k_rlc.fold_plain(k_rlc.local_sum_plain(pts, ks)))
         err = _max_abs_err(got, want)
         if not torch.equal(got, want):
@@ -3403,6 +3552,20 @@ def main(argv=None) -> int:
                         if name == "g1_scalar_mul_wide"
                         else {}
                     ),
+                    # the replaced kernel's launches; K2's thread layout on K11's lanes
+                    **(
+                        {
+                            key: sharded_checks["kernels"][case][key]
+                            for key in ("launches_per_call", "gpu_ms", "replaced_ms", "replaced_gpu_ms", "replaced_launches")
+                        }
+                        if name == "merkle_subtree_roots"
+                        else {}
+                    ),
+                    **(
+                        {"k2_thread_ms": sharded_checks["kernels"][case]["k2_thread_ms"]}
+                        if name == "g1_scalar_mul_wide64"
+                        else {}
+                    ),
                 }
                 for name, src, replaces, launches, case in (
                     (
@@ -3419,12 +3582,20 @@ def main(argv=None) -> int:
                         sharded["c_ladder_msm"]["launches"]["g1_scalar_mul_wide"],
                         f"g1_scalar_mul_wide[{kzg.setup.n}]",
                     ),
+                    (
+                        "g1_scalar_mul_wide64",
+                        "lighthouse_tpu_torch/csrc/bls381_g.cu",
+                        "lighthouse_tpu/ops/bls381_sharded.py:56",
+                        sharded["b_rlc_sum"]["launches"]["g1_scalar_mul_wide64"],
+                        f"g1_scalar_mul_wide64[{RLC_POINTS}]",
+                    ),
                 )
             ]
             + [
                 {
-                    # a composition of K2 kernels (bls381_g.cu) around NCCL's
-                    # all-gather: its launches are theirs, its ms theirs alone
+                    # a composition of bls381_g.cu's kernels (the 64-bit chain,
+                    # K2's segment sums) around NCCL's all-gather: its launches
+                    # are theirs, its ms theirs alone
                     "name": "sharded_rlc_g1",
                     "route": "cuda",
                     "source": "lighthouse_tpu_torch/ops/bls381_sharded.py",

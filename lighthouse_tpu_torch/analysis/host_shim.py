@@ -13,7 +13,14 @@ per point) is not. This module makes nvcc's dialect host C++20:
   ``dim3``s, ``__syncthreads`` as a ``std::barrier`` of the block's threads
   and ``__syncwarp`` as one of the warp's (32 threads, or the block's last
   ones) or, given a mask of fewer lanes, of those lanes (a team narrower
-  than a warp), ``__ffs`` as ``__builtin_ffs``, and stubs ``clock64``,
+  than a warp), ``__shfl_down_sync`` as a slot a thread posted and read
+  between two such warp barriers, ``__threadfence`` as a
+  sequentially consistent fence and ``atomicAdd`` as GCC's
+  ``__atomic_fetch_add`` (a launch's blocks run one after another, so the
+  last to count itself in is the last block), ``__ffs`` as
+  ``__builtin_ffs``, ``uint4``/``make_uint4``, ``__ldcg`` as a plain load,
+  ``__funnelshift_r`` and ``__byte_perm`` as their definitions,
+  ``cudaMemsetAsync`` as ``memset``, and stubs ``clock64``,
   ``cudaGetLastError`` and ``cudaDeviceSynchronize``; a stub
   ``cuda_runtime.h`` includes nothing;
 * each launch ``kernel<T><<<grid, block, ...>>>(args);`` is rewritten to
@@ -49,7 +56,9 @@ from ..ops.cuda_build import CSRC
 
 SHIM_H = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
+#include <cstring>
 #include <map>
 #include <memory>
 #include <mutex>
@@ -63,10 +72,39 @@ struct dim3 {
 };
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 static inline int cudaGetLastError() { return 0; }
 static inline int cudaDeviceSynchronize() { return 0; }
+static inline int cudaMemsetAsync(void* p, int v, unsigned long long n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
 static inline long long clock64() { return 0; }
 static inline int __ffs(int x) { return __builtin_ffs(x); }
+
+struct uint4 {
+  unsigned x, y, z, w;
+};
+static inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return uint4{a, b, c, d}; }
+static inline uint4 __ldcg(const uint4* p) { return *p; }
+static inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+  s &= 31;
+  return s ? (lo >> s) | (hi << (32 - s)) : lo;
+}
+// byte i of the result: byte (s >> 4i) & 7 of the 8 bytes y:x
+static inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; i++) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+// a launch runs its blocks one after another: a fence and an atomic order
+// the host threads of one block
+static inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+static inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+static inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 #define __device__
 #define __global__
@@ -89,7 +127,8 @@ struct shim_block {
   std::mutex mu;
   std::map<std::pair<unsigned, unsigned>, std::unique_ptr<std::barrier<>>> masked;
   unsigned n;
-  explicit shim_block(unsigned threads) : all((std::ptrdiff_t)threads), n(threads) {
+  std::vector<unsigned long long> xchg;  // a __shfl_*_sync's values, a slot a thread
+  explicit shim_block(unsigned threads) : all((std::ptrdiff_t)threads), n(threads), xchg(threads) {
     for (unsigned w = 0; w < n; w += 32)
       warps.push_back(std::make_unique<std::barrier<>>((std::ptrdiff_t)(n - w < 32 ? n - w : 32)));
   }
@@ -113,6 +152,23 @@ static inline void __syncwarp(unsigned mask = 0xffffffffu) {
     b = slot.get();
   }
   b->arrive_and_wait();
+}
+
+// each lane of `mask` posts v, then reads lane + delta's (its own where
+// that lies past its segment of `width` lanes)
+template <class T>
+static inline T __shfl_down_sync(unsigned mask, T v, unsigned delta, int width = 32) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 64 bits");
+  const int lane = shim_tid % 32;
+  unsigned long long raw = 0;
+  std::memcpy(&raw, &v, sizeof(T));
+  shim_this_block->xchg[shim_tid] = raw;
+  __syncwarp(mask);
+  if (lane % width + (int)delta < width) raw = shim_this_block->xchg[shim_tid + delta];
+  __syncwarp(mask);
+  T r;
+  std::memcpy(&r, &raw, sizeof(T));
+  return r;
 }
 
 // the grid's blocks one after another, each block's threads side by side

@@ -11,7 +11,9 @@
 //     Fermat inverse a lane there; one batch inversion a block here);
 //   * msm.py:172 g1_msm_ladder's per-point ladders (K9 ladder): 256-bit
 //     scalars, batch_g1_scalar_mul over NBITS = 256 (the tree sum after
-//     them is g1_segment_sum).
+//     them is g1_segment_sum);
+//   * bls381_sharded.py:56 sharded_rlc_g1_fn's per-point 64-bit ladders
+//     (K11: pt_scalar_mul over the RLC draws' 64 bits).
 //
 // Design. The G1 and G2 ladders run a warp per lane: 32 lanes are 32
 // warps on 32 SMs, and the bit branch is the team's own, so a warp pays an
@@ -38,8 +40,9 @@
 // layout took 1.144 ms at 32 lanes, 1.696 at 512, 2.471 at 768, 2.735 at
 // 1,024 and 9.523 at 4,096; the thread layout 2.63-2.68 ms at every
 // count: the crossover lies between 768 and 1,024 lanes. The verifier's
-// chunks (<= 32 lanes) take the team layout, K11's 4,096 lanes the thread
-// one.
+// chunks (<= 32 lanes) take the team layout; K11's 4,096 lanes run the
+// signed-window chain below instead (bls_g1_scalar_mul_wide64), and
+// chip_smoke.py times the thread layout beside it.
 // The 256-bit G1 ladder (bls_g1_scalar_mul_wide, K9's ladder MSM: 4,096
 // lanes) is a signed fixed-window chain. Each scalar is Booth-recoded in
 // the kernel, from its words, into 256 / W + 1 = 65 digits of W = 4 bits
@@ -69,6 +72,17 @@
 // for chip_smoke.py's comparison alone (bls_g1_scalar_mul_wide_layout).
 // The plain version (pt_mul_words) takes the same steps, so the output
 // equals it limb for limb.
+// K11's 64-bit draws (bls_g1_scalar_mul_wide64) run the same kernel over
+// 64 / W + 1 = 17 windows (g1_wide_team_kernel<2>: the scalar's words are
+// a template parameter; the top window holds bit 63 alone), each [n]
+// int64 read as an unsigned 64-bit word (half the draws have bit 63 set),
+// with no padding on the host: a random draw takes ~62 doublings and ~15
+// additions after its top digit, against 63 and ~31 of the bit ladder
+// (pt_mul_u64), which ran a thread a lane at 4,096 lanes. On an NVIDIA
+// H100 80GB HBM3 at 700 W (chip_smoke.py phase 3) it took 0.719 ms at
+// 4,096 lanes, the thread layout of the bit ladder 2.64 on the same lanes.
+// Its output equals its plain version's (pt_mul_words over u64_words),
+// not pt_mul_u64's: the same points in other Jacobian coordinates.
 // The conversions to affine (bls_g1_to_affine, bls_g2_to_affine) take
 // Montgomery's batch inversion, one block of LANES_PER_BLOCK (64) threads
 // per 64 lanes, a lane a thread: the verifier's 32 and 33 lanes are one
@@ -166,6 +180,8 @@
 //     computes, so its bound is K9's least work for the same scalars
 //     (chip_smoke.msm_fq_muls): what the per-point chains do beyond it,
 //     ~256 doublings and ~64 additions a point, is what the ratio shows.
+//     K11's 64-bit chain (bls_g1_scalar_mul_wide64) likewise: Pippenger's
+//     least work for its 64-bit scalars (msm_fq_muls(..., bits=64)).
 // chip_smoke.py (BLS_FQ_MULS) turns these counts into a bound: 588 32-bit
 // multiplies per Montgomery multiplication over 64 multiplies per clock
 // per SM (CUDA C++ Programming Guide, compute capability 9.0), 132 SMs,
@@ -253,7 +269,6 @@ g1_ladder_kernel(const long long* pts, const long long* k, long long* out) {
 #define WIDE_TEAMS 8
 // the window: 4 bits (5 measured slower, see the header)
 #define WIDE_W 4
-#define WIDE_WINDOWS (256 / WIDE_W + 1)  // 65
 #define WIDE_ENTRIES (1 << (WIDE_W - 1))  // the table: 1 P .. 8 P
 
 // the scalar's 8 words (big-endian int32, ops/fr.py's layout) as
@@ -262,12 +277,30 @@ DEV void wide_words(uint32_t* s, const int* words) {
   for (int j = 0; j < 8; j++) s[j] = (uint32_t)words[7 - j];
 }
 
-// The Booth-recoded digit i of the 256-bit s: from the W + 1 bits
+// lane i's scalar as NW little-endian 32-bit words: K9's [n, 8] int32
+// canonical big-endian words (NW = 8), or K11's [n] int64 bit patterns
+// read as unsigned 64-bit (NW = 2: a draw with bit 63 set arrives
+// negative)
+template <int NW>
+DEV void wide_load(uint32_t* s, const void* scalars, long long i) {
+  if constexpr (NW == 8) {
+    wide_words(s, (const int*)scalars + i * 8);
+  } else {
+    static_assert(NW == 2, "K9's 8 words or K11's 2");
+    const unsigned long long k = ((const unsigned long long*)scalars)[i];
+    s[0] = (uint32_t)k;
+    s[1] = (uint32_t)(k >> 32);
+  }
+}
+
+// The Booth-recoded digit i of the (32 NW)-bit s: from the W + 1 bits
 // i W - 1 .. i W + W - 1 (W = WIDE_W, bit -1 is 0), d_i = (window's low
 // W - 1 bits) + (the bit below the window) - 2^(W-1) (the window's top
-// bit), so |d_i| <= 2^(W-1) and sum_i d_i 2^(i W) = s over WIDE_WINDOWS
-// windows (their top bit lies above bit 255). Each digit is read from
-// the words alone: no carry chain runs from digit to digit.
+// bit), so |d_i| <= 2^(W-1) and sum_i d_i 2^(i W) = s over 32 NW / W + 1
+// windows (their top bit lies above the scalar's: K9's 256 bits take 65,
+// K11's 64 bits 17, the top one bit 63 alone). Each digit is read from the
+// words alone: no carry chain runs from digit to digit.
+template <int NW>
 DEV int wide_digit(const uint32_t* s, int i) {
   const int W = WIDE_W;
   const int lo = i * W - 1;
@@ -276,7 +309,7 @@ DEV int wide_digit(const uint32_t* s, int i) {
     f = s[0] << 1;
   } else {
     const int q = lo >> 5;
-    const unsigned long long two = s[q] | (q < 7 ? (unsigned long long)s[q + 1] << 32 : 0ull);
+    const unsigned long long two = s[q] | (q < NW - 1 ? (unsigned long long)s[q + 1] << 32 : 0ull);
     f = (uint32_t)(two >> (lo & 31));
   }
   f &= (1u << (W + 1)) - 1;
@@ -284,9 +317,10 @@ DEV int wide_digit(const uint32_t* s, int i) {
 }
 
 // the highest window whose digit is not 0, or -1 for s = 0
+template <int NW>
 DEV int wide_top(const uint32_t* s) {
-  int top = WIDE_WINDOWS - 1;
-  while (top >= 0 && !wide_digit(s, top)) top--;
+  int top = NW * 32 / WIDE_W;
+  while (top >= 0 && !wide_digit<NW>(s, top)) top--;
   return top;
 }
 
@@ -310,11 +344,11 @@ scalar_mul_wide_kernel(const long long* pts, const int* words, long long* out, l
   for (int m = 2; m <= WIDE_ENTRIES; m++) {
     if (m & 1) pt_add(tab[m - 1], tab[m - 2], tab[0]); else pt_double(tab[m - 1], tab[m / 2 - 1]);
   }
-  const int top = wide_top(s);
-  if (top < 0) pt_inf(acc); else wide_entry(acc, tab, wide_digit(s, top));
+  const int top = wide_top<8>(s);
+  if (top < 0) pt_inf(acc); else wide_entry(acc, tab, wide_digit<8>(s, top));
   for (int w = top - 1; w >= 0; w--) {
     for (int k = 0; k < WIDE_W; k++) pt_double(acc, acc);
-    const int d = wide_digit(s, w);
+    const int d = wide_digit<8>(s, w);
     if (d) {
       jac<fp> q;
       wide_entry(q, tab, d);
@@ -337,9 +371,10 @@ DEV void team_entry(const G1Team& tm, jac<fp>& r, const jac<fp>* tab, int d) {
 }
 
 // the same on 4-lane teams, a team a lane; a team's table, accumulator
-// and addend in shared memory
+// and addend in shared memory; scalars of NW words (wide_load)
+template <int NW>
 __global__ void __launch_bounds__(WIDE_TEAM * WIDE_TEAMS)
-g1_wide_team_kernel(const long long* pts, const int* words, long long* out, long long n) {
+g1_wide_team_kernel(const long long* pts, const void* scalars, long long* out, long long n) {
   __shared__ jac<fp> tabs[WIDE_TEAMS][WIDE_ENTRIES];
   __shared__ jac<fp> accs[WIDE_TEAMS], adds[WIDE_TEAMS];
   __shared__ fp slots[WIDE_TEAMS][G1_SLOTS];
@@ -349,18 +384,18 @@ g1_wide_team_kernel(const long long* pts, const int* words, long long* out, long
   const G1Team tm{t % WIDE_TEAM, slots[team], 0xfu << (t & 28)};
   jac<fp>* tab = tabs[team];
   jac<fp>&acc = accs[team], &q = adds[team];
-  uint32_t s[8];
-  wide_words(s, words + i * 8);
+  uint32_t s[NW];
+  wide_load<NW>(s, scalars, i);
   if (tm.lane < 3) fp_ld(tm.lane == 0 ? tab[0].x : tm.lane == 1 ? tab[0].y : tab[0].z, pts + i * 36 + tm.lane * 12);
   tm.sync();
   for (int m = 2; m <= WIDE_ENTRIES; m++) {
     if (m & 1) team_add(tm, tab[m - 1], tab[m - 2], tab[0]); else team_dbl(tm, tab[m - 1], tab[m / 2 - 1]);
   }
-  const int top = wide_top(s);
-  if (top < 0) team_inf(tm, acc); else team_entry(tm, acc, tab, wide_digit(s, top));
+  const int top = wide_top<NW>(s);
+  if (top < 0) team_inf(tm, acc); else team_entry(tm, acc, tab, wide_digit<NW>(s, top));
   for (int w = top - 1; w >= 0; w--) {
     for (int k = 0; k < WIDE_W; k++) team_dbl(tm, acc, acc);
-    const int d = wide_digit(s, w);  // the team's own: its lanes agree
+    const int d = wide_digit<NW>(s, w);  // the team's own: its lanes agree
     if (d) {
       team_entry(tm, q, tab, d);
       team_add(tm, acc, acc, q);
@@ -687,8 +722,8 @@ int bls_g2_scalar_mul(const long long* pts, const long long* k, long long* out, 
 int bls_g1_scalar_mul_wide_layout(const long long* pts, const int* words, long long* out, long long n, int team,
                                   void* stream) {
   if (team) {
-    g1_wide_team_kernel<<<(unsigned)((n + WIDE_TEAMS - 1) / WIDE_TEAMS), WIDE_TEAM * WIDE_TEAMS, 0,
-                          (cudaStream_t)stream>>>(pts, words, out, n);
+    g1_wide_team_kernel<8><<<(unsigned)((n + WIDE_TEAMS - 1) / WIDE_TEAMS), WIDE_TEAM * WIDE_TEAMS, 0,
+                             (cudaStream_t)stream>>>(pts, words, out, n);
   } else {
     scalar_mul_wide_kernel<<<(unsigned)((n + WIDE_THREADS - 1) / WIDE_THREADS), WIDE_THREADS, 0,
                              (cudaStream_t)stream>>>(pts, words, out, n);
@@ -698,6 +733,14 @@ int bls_g1_scalar_mul_wide_layout(const long long* pts, const int* words, long l
 
 int bls_g1_scalar_mul_wide(const long long* pts, const int* words, long long* out, long long n, void* stream) {
   return bls_g1_scalar_mul_wide_layout(pts, words, out, n, 1, stream);
+}
+
+// K11: [n] 64-bit scalars (int64 bit patterns, read unsigned), the same
+// chain over 17 windows on the same 4-lane teams
+int bls_g1_scalar_mul_wide64(const long long* pts, const long long* k, long long* out, long long n, void* stream) {
+  g1_wide_team_kernel<2><<<(unsigned)((n + WIDE_TEAMS - 1) / WIDE_TEAMS), WIDE_TEAM * WIDE_TEAMS, 0,
+                           (cudaStream_t)stream>>>(pts, k, out, n);
+  return (int)cudaGetLastError();
 }
 
 // *scratch: the points of buf that a segment sum over [n, k] needs (in G2

@@ -3,7 +3,8 @@
 Counterpart of lighthouse_tpu/ops/bls381.py (and of the point helpers of
 ops/bls381_verify.py). Its kernels, ``csrc/bls381_g.cu``, replace the JAX
 package's 64-bit RLC ladders (``batch_g1_scalar_mul``/
-``batch_g2_scalar_mul``, :481/:487), its tree sums over a padded committee
+``batch_g2_scalar_mul``, :481/:487; K11's, ``sharded_rlc_g1_fn``'s
+``pt_scalar_mul`` in bls381_sharded.py:56), its tree sums over a padded committee
 axis (``g1_sum_reduce`` :492; ``g1_segment_sum``/``g2_sum_reduce``,
 bls381_verify.py:103/108) and its batched Jacobian -> affine conversion
 (bls381_verify.py:122/138), and the per-point 256-bit ladders of
@@ -26,7 +27,8 @@ Z = 1 forms where an operand is affine), the other levels on teams
 as the plain version's. The 256-bit ladder is a signed-window chain
 (``pt_mul_words``): Booth digits of 4 bits read from the words, a
 per-lane table 1 P .. 8 P, then 4 doublings and one signed addition a
-window, on a 4-lane team a lane.
+window, on a 4-lane team a lane; K11's 64-bit draws run the same chain
+over 17 windows (``scalar_mul_wide64``).
 
 Layout: Fq is 12 little-endian 32-bit limbs in Montgomery form with
 R = 2^384 (the JAX package's R, so a residue is the same integer in both;
@@ -69,6 +71,7 @@ COUNTS = {
     "g1_scalar_mul": 0,
     "g2_scalar_mul": 0,
     "g1_scalar_mul_wide": 0,
+    "g1_scalar_mul_wide64": 0,
     "g1_segment_sum": 0,
     "g2_segment_sum": 0,
     "g1_to_affine": 0,
@@ -83,6 +86,7 @@ LIB = CudaLibrary(
         "bls_g2_scalar_mul": ("p", "p", "p", "i64", "p"),
         "bls_g1_scalar_mul_wide": ("p", "p", "p", "i64", "p"),
         "bls_g1_scalar_mul_wide_layout": ("p", "p", "p", "i64", "i32", "p"),
+        "bls_g1_scalar_mul_wide64": ("p", "p", "p", "i64", "p"),
         "bls_g1_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_g2_segment_sum": ("p", "p", "p", "i64", "i32", "p"),
         "bls_segment_sum_plan": ("i32", "i64", "i32", "p"),
@@ -445,26 +449,34 @@ def pt_mul_u64(F, p, k: torch.Tensor):
     return pt_ladder(F, p, [((k >> i) & 1).bool() for i in range(63, -1, -1)])
 
 
-# The 256-bit ladder's signed window, in bits (csrc/bls381_g.cu WIDE_W)
+# The signed-window chain's window, in bits (csrc/bls381_g.cu WIDE_W)
 WIDE_WINDOW = 4
 
 
 def wide_digits(words: torch.Tensor) -> torch.Tensor:
-    """The Booth-recoded digits of 256-bit scalars ([lanes, 8] int32
-    big-endian words) -> [lanes, 256 // W + 1] int64 (W = WIDE_WINDOW),
-    least significant window first: d_i = (window i's low W - 1 bits) +
-    (the bit below it) - 2^(W-1) (its top bit), so |d_i| <= 2^(W-1) and
-    sum_i d_i 2^(i W) is the scalar."""
+    """The Booth-recoded digits of scalars of 32 m bits ([lanes, m] 32-bit
+    big-endian words: K9's [lanes, 8] int32, or ``u64_words``) -> [lanes,
+    32 m // W + 1] int64 (W = WIDE_WINDOW), least significant window
+    first: d_i = (window i's low W - 1 bits) + (the bit below it) - 2^(W-1)
+    (its top bit), so |d_i| <= 2^(W-1) and sum_i d_i 2^(i W) is the
+    scalar."""
     w = WIDE_WINDOW
     u = words.to(torch.int64) & 0xFFFFFFFF
+    nbits = 32 * words.shape[-1]
     shifts = torch.arange(32, device=words.device)
-    bits = ((u.flip(-1)[..., None] >> shifts) & 1).flatten(-2)  # [lanes, 256], bit 0 first
-    nwin = 256 // w + 1
+    bits = ((u.flip(-1)[..., None] >> shifts) & 1).flatten(-2)  # [lanes, nbits], bit 0 first
+    nwin = nbits // w + 1
     # column j is bit j - 1; window i reads columns i W .. i W + W
-    padded = F_.pad(bits, (1, nwin * w - 256))
+    padded = F_.pad(bits, (1, nwin * w - nbits))
     fields = padded.unfold(-1, w + 1, w)
     weights = torch.tensor([1] + [1 << j for j in range(w - 1)] + [-(1 << (w - 1))], device=words.device)
     return (fields * weights).sum(-1)
+
+
+def u64_words(k: torch.Tensor) -> torch.Tensor:
+    """[lanes] 64-bit scalars (int64 bit patterns) -> [lanes, 2] int64
+    big-endian 32-bit words (high, low), the scalars read unsigned."""
+    return torch.stack(((k >> 32) & 0xFFFFFFFF, k & 0xFFFFFFFF), -1)
 
 
 def wide_table(F, p):
@@ -477,8 +489,10 @@ def wide_table(F, p):
 
 
 def pt_mul_words(F, p, words: torch.Tensor):
-    """[k]P for 256-bit scalars k as [lanes, 8] int32 canonical big-endian
-    words (ops/fr.py's layout), the kernel's signed-window chain: per
+    """[k]P for scalars k as [lanes, m] 32-bit big-endian words (K9's
+    [lanes, 8] int32 canonical words, ops/fr.py's layout; K11's
+    ``u64_words``), the kernel's signed-window chain over 32 m // W + 1
+    windows: per
     window, from the top, WIDE_WINDOW doublings and the addition of the
     digit's table entry (its negation for a negative digit; none for 0).
     From the canonical infinity: its doublings keep it and its first
@@ -545,6 +559,10 @@ def scalar_mul_plain(group: str, pts: torch.Tensor, k: torch.Tensor) -> torch.Te
 
 def scalar_mul_wide_plain(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     return pack32(pt_mul_words(Fq1, unpack16(pts, 1), words), 1)
+
+
+def scalar_mul_wide64_plain(pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return pack32(pt_mul_words(Fq1, unpack16(pts, 1), u64_words(k)), 1)
 
 
 def segment_sum_plain(group: str, pts: torch.Tensor) -> torch.Tensor:
@@ -626,6 +644,29 @@ def scalar_mul_wide(pts: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     if n:
         LIB.launch("bls_g1_scalar_mul_wide", pts.data_ptr(), words.data_ptr(), out.data_ptr(), n, device=dev)
         COUNTS["g1_scalar_mul_wide"] += 1
+    return out
+
+
+def scalar_mul_wide64(pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[n, 3, 12] Jacobian G1 points times [n] 64-bit scalars (int64 bit
+    patterns, read unsigned) -> [n, 3, 12]: the signed-window chain of
+    ``scalar_mul_wide`` over 17 windows (K11's random linear combination
+    draws). Its output is the plain chain's limb for limb, not
+    ``scalar_mul``'s (the same points in other Jacobian coordinates)."""
+    check_limbs(pts, (3, NLIMB), "pts")
+    n = pts.shape[0]
+    if pts.dim() != 3:
+        raise ValueError(f"pts: expected [n, 3, 12], got {list(pts.shape)}")
+    if k.dtype != torch.int64 or tuple(k.shape) != (n,):
+        raise ValueError(f"scalars: expected [{n}] int64, got {list(k.shape)} {k.dtype}")
+    if pts.device.type == "cpu":
+        return scalar_mul_wide64_plain(pts, k)
+    dev = _cuda_ok(pts, k)
+    k = k.contiguous()
+    out = torch.empty_like(pts)
+    if n:
+        LIB.launch("bls_g1_scalar_mul_wide64", pts.data_ptr(), k.data_ptr(), out.data_ptr(), n, device=dev)
+        COUNTS["g1_scalar_mul_wide64"] += 1
     return out
 
 

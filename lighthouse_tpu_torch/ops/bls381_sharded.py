@@ -9,9 +9,11 @@ partial sum; the partial sums are all-gathered (NCCL on cards, gloo on
 the CPU), and every rank folds the [ranks] tail itself, so each returns
 the same Σ rᵢ·Pᵢ.
 
-Kernels: none of its own. It composes the port's hand-written K2 kernels
-of ``csrc/bls381_g.cu``: ``scalar_mul("g1", ...)`` (the ladders,
-``bls_g1_scalar_mul``) and ``segment_sum("g1", ...)`` (the tree sums,
+Kernels: none of its own. It composes the port's hand-written kernels of
+``csrc/bls381_g.cu``: ``scalar_mul_wide64`` (the ladders,
+``bls_g1_scalar_mul_wide64``: K9's signed-window chain over the 64-bit
+draws' 17 windows of 4 bits, on 4-lane G1 teams) and K2's
+``segment_sum("g1", ...)`` (the tree sums,
 ``bls_g1_segment_sum``, once over the shard padded with infinities to a
 power of two and once for the fold), each of which counts its own
 launches in ``ops/bls381.COUNTS``. On a CPU tensor they run their plain
@@ -19,8 +21,9 @@ versions. Point addition is not an arithmetic reduction, so the
 collective is an all-gather of [ranks, 3, 12] limbs, not an all-reduce.
 
 The tree pairs neighbours (ops/bls381.segment_sum), where JAX's
-``_tree_reduce_points`` carries an odd count's last point up: the
-Jacobian coordinates differ, the affine points do not. Compare in affine.
+``_tree_reduce_points`` carries an odd count's last point up, and the
+chain's steps are not JAX's bit ladder: the Jacobian coordinates differ,
+the affine points do not. Compare in affine.
 """
 
 from __future__ import annotations
@@ -28,17 +31,17 @@ from __future__ import annotations
 import torch
 
 from ..parallel.mesh import all_gather_rows, shard_batch
-from .bls381 import scalar_mul, scalar_mul_plain, segment_sum, segment_sum_plain, tree_row
+from .bls381 import scalar_mul_wide64, scalar_mul_wide64_plain, segment_sum, segment_sum_plain, tree_row
 
 
 def local_sum(pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """[n, 3, 12] G1 points, [n] 64-bit scalars (int64 bit patterns) ->
     [1, 3, 12] Σ kᵢ·Pᵢ over this shard."""
-    return segment_sum("g1", tree_row(scalar_mul("g1", pts, k)))
+    return segment_sum("g1", tree_row(scalar_mul_wide64(pts, k)))
 
 
 def local_sum_plain(pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    return segment_sum_plain("g1", tree_row(scalar_mul_plain("g1", pts, k)))
+    return segment_sum_plain("g1", tree_row(scalar_mul_wide64_plain(pts, k)))
 
 
 def fold(parts: torch.Tensor) -> torch.Tensor:

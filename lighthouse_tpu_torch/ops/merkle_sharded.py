@@ -8,11 +8,13 @@ tree itself, so each returns the same root.
 
 Kernel: ``csrc/merkle_subtree.cu`` replaces ``_sha256_pairs_inline`` and
 ``_reduce_to_root`` (:24, :34): one launch reduces every run of 2^k
-sibling nodes (k <= 9) to their subtree root, the upper levels kept in
-shared memory, and a shard takes as many launches as its depth needs in
-steps of 9. Its compression is K1's (``csrc/sha256.cuh``). It is bound by
-32-bit integer instruction rate, as K1 is. Layout: raw bytes, a node a [32] uint8
-row, as ``ops/sha256.py``.
+sibling nodes (k <= 26) to their subtree root. A thread hashes a subtree
+of up to 16 nodes from registers; a block's thread roots meet in levels
+of pairs from shared memory, the last five on one warp by shuffles; and
+the last block of a run to finish (an atomic count) reduces the blocks'
+roots. A shard of 2^20 leaves takes one launch. Its compression is K1's
+(``csrc/sha256.cuh``). It is bound by 32-bit integer instruction rate, as
+K1 is. Layout: raw bytes, a node a [32] uint8 row, as ``ops/sha256.py``.
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel, a
 CPU tensor to the plain version (``merkle_subtree_roots_plain``, K1's
@@ -27,10 +29,21 @@ from ..parallel.mesh import all_gather_rows
 from .cuda_build import CudaLibrary
 from .sha256 import sha256_rows_plain
 
-# Levels one launch reduces: 2^(MAX_LEVELS - 1) = 256 threads a block.
-MAX_LEVELS = 9
+# Levels one launch reduces: 2^(26 - 4) threads of 16 nodes, in at most
+# 16 * 512 blocks of 512 threads, whose roots the last block reduces
+MAX_LEVELS = 26
+# A run's threads: each hashes 2^leaf_levels nodes, 1 <= leaf_levels <= 4
+MAX_LEAF_LEVELS = 4
+RUN_THREADS_LOG = 16
+BLOCK_THREADS = 512
 
-LIB = CudaLibrary("merkle_subtree.cu", {"merkle_subtree_roots": ("p", "p", "i64", "i32", "p")})
+LIB = CudaLibrary(
+    "merkle_subtree.cu",
+    {
+        "merkle_subtree_roots": ("p", "p", "p", "p", "i64", "i32", "i32", "i32", "p"),
+        "merkle_subtree_levels": ("p", "p", "i64", "i32", "p"),
+    },
+)
 
 # Kernel launches, counted where the kernel launches and nowhere else.
 COUNTS = {"merkle_subtree_roots": 0}
@@ -60,9 +73,19 @@ def merkle_subtree_roots_plain(nodes: torch.Tensor, levels: int) -> torch.Tensor
     return nodes
 
 
+def subtree_plan(levels: int) -> tuple[int, int]:
+    """(leaf_levels, threads a block) of a launch over runs of 2^levels
+    nodes: each thread 2^leaf_levels nodes, so that a run keeps about
+    2^RUN_THREADS_LOG threads at work (at 2^20 leaves 16 nodes a thread,
+    65,536 threads in 128 blocks, one an SM)."""
+    leaf = min(max(levels - RUN_THREADS_LOG, 1), MAX_LEAF_LEVELS)
+    return leaf, min(1 << (levels - leaf), BLOCK_THREADS)
+
+
 def merkle_subtree_roots(nodes: torch.Tensor, levels: int) -> torch.Tensor:
     """[m, 32] uint8 nodes -> [m >> levels, 32] roots of their runs of
-    2^levels siblings (1 <= levels <= 9), in one launch on a CUDA tensor."""
+    2^levels siblings (1 <= levels <= MAX_LEVELS), in one launch on a CUDA
+    tensor."""
     _check_nodes(nodes, levels)
     if levels > MAX_LEVELS:
         raise ValueError(f"levels {levels} above {MAX_LEVELS}: one launch reduces at most 2^{MAX_LEVELS} nodes")
@@ -73,8 +96,19 @@ def merkle_subtree_roots(nodes: torch.Tensor, levels: int) -> torch.Tensor:
     if nodes.data_ptr() % 16:
         raise ValueError("nodes must be 16-byte aligned")
     m = nodes.shape[0]
-    out = torch.empty((m >> levels, 32), dtype=torch.uint8, device=nodes.device)
-    LIB.launch("merkle_subtree_roots", nodes.data_ptr(), out.data_ptr(), m, levels, device=nodes.device)
+    runs = m >> levels
+    leaf, threads = subtree_plan(levels)
+    blocks_per_run = (1 << (levels - leaf)) // threads
+    out = torch.empty((runs, 32), dtype=torch.uint8, device=nodes.device)
+    # the blocks' roots and each run's count of blocks done (zeroed by the
+    # launcher; neither is touched where a run is one block)
+    roots = torch.empty((runs * blocks_per_run, 32), dtype=torch.uint8, device=nodes.device)
+    counters = torch.empty((runs,), dtype=torch.int32, device=nodes.device)
+    LIB.launch(
+        "merkle_subtree_roots",
+        nodes.data_ptr(), out.data_ptr(), roots.data_ptr(), counters.data_ptr(), m, levels, leaf, threads,
+        device=nodes.device,
+    )
     COUNTS["merkle_subtree_roots"] += 1
     return out
 

@@ -562,17 +562,56 @@ def test_kzg_six_blobs_on_the_ceremony_setup(cuda):
 
 
 def test_merkle_subtree_roots_match_plain_and_hashlib(cuda):
+    """Runs of 2^1, 2^5, 2^9 and 2^12 of 2^12 leaves, a launch each."""
     from lighthouse_tpu_torch.ops import merkle_sharded as K10
 
     leaves_np = np.random.default_rng(50).integers(0, 256, (1 << 12, 32), dtype=np.uint8)
     leaves = torch.from_numpy(leaves_np).to(cuda)
-    for levels in (1, 5, 9):
+    for levels in (1, 5, 9, 12):
         got = _launched(K10.COUNTS, "merkle_subtree_roots", lambda: K10.merkle_subtree_roots(leaves, levels))
         assert torch.equal(got, K10.merkle_subtree_roots_plain(leaves, levels))
     fold = leaves_np
     while fold.shape[0] > 1:
         fold = _hashlib_rows(fold.reshape(-1, 64))
     assert K10.subtree_root(leaves)[0].cpu().numpy().tobytes() == fold[0].tobytes()
+
+
+@pytest.mark.parametrize("depth", range(1, 21))
+def test_merkle_subtree_root_at_every_size(cuda, depth):
+    """K10's root of 2^1 .. 2^20 leaves in one launch (from 2^11 leaves
+    the run's last block reduces its blocks' roots), equal to its plain
+    version and to a hashlib fold; twice, so that a launch after another
+    finds the run's count at 0 again."""
+    from lighthouse_tpu_torch.ops import merkle_sharded as K10
+
+    leaves_np = np.random.default_rng(80 + depth).integers(0, 256, (1 << depth, 32), dtype=np.uint8)
+    leaves = torch.from_numpy(leaves_np).to(cuda)
+    for _ in range(2):
+        got = _launched(K10.COUNTS, "merkle_subtree_roots", lambda: K10.subtree_root(leaves))
+        assert torch.equal(got, K10.merkle_subtree_roots_plain(leaves, depth))
+    fold = leaves_np
+    while fold.shape[0] > 1:
+        fold = _hashlib_rows(fold.reshape(-1, 64))
+    assert got[0].cpu().numpy().tobytes() == fold[0].tobytes()
+
+
+@pytest.mark.parametrize("n", [1, 33, 4096])
+def test_wide64_chain_matches_plain_and_host(cuda, n):
+    """K11's 64-bit chain at 1, 33 and 4,096 lanes (chip_smoke's
+    rlc_chain_edge_case: the scalars 0, 1, 15, 16, 2^63 - 1, 2^63 and
+    2^64 - 1, an affine point, an infinity and a point of order 3),
+    limb-equal to its plain version and, on up to 37 lanes, to the host's
+    pt_mul."""
+    from chip_smoke import rlc_chain_edge_case
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, pt_eq, pt_mul
+
+    pts, sc = rlc_chain_edge_case(np.random.default_rng(64 + n), n)
+    pt = _g1(pts, cuda)
+    k = K2.scalars_to_tensor(sc).to(cuda)
+    got = _launched(K2.COUNTS, "g1_scalar_mul_wide64", lambda: K2.scalar_mul_wide64(pt, k))
+    assert torch.equal(got, K2.scalar_mul_wide64_plain(pt, k))
+    for row, p, s in zip(K2.g1_from_limbs(got[:37].cpu().numpy()), pts, sc):
+        assert pt_eq(FQ, row, pt_mul(FQ, p, s))
 
 
 @pytest.mark.parametrize("n", [1, 37, 300])
@@ -658,7 +697,7 @@ def test_sharded_rlc_g1_on_a_one_rank_nccl_group(cuda, tmp_path):
         before = dict(K2.COUNTS)
         got = K11.sharded_rlc_g1(pt, k, mesh)
         torch.cuda.synchronize()
-        assert K2.COUNTS["g1_scalar_mul"] == before["g1_scalar_mul"] + 1
+        assert K2.COUNTS["g1_scalar_mul_wide64"] == before["g1_scalar_mul_wide64"] + 1
         # the shard's 131 terms padded to 256 (two passes), then one rank's sum
         assert K2.COUNTS["g1_segment_sum"] == before["g1_segment_sum"] + 3
         assert torch.equal(got, K11.fold_plain(K11.local_sum_plain(pt, k)))

@@ -1,17 +1,22 @@
 """K2's warp-team G1 ladder, K2's batch conversions to affine, K2's
 segment sums, K4's warp-team subgroup check, K9's 256-bit ladder (its
-signed-window chain on its teams and on the thread layout) and K9's table (the
-doubling walk, then K2's conversion to affine), built as host C++ through
-the shim of lighthouse_tpu_torch.analysis.host_shim (a block's threads as
-std::threads, __syncwarp and __syncthreads as barriers), against their
-plain PyTorch versions on the CPU: limb for limb (the ladders, the
-conversions, the sums), byte for byte (the table), verdict for verdict
-(the check). This runs the kernels' own
-team and block code, branches and barriers on the CPU; the card's run is
-tests/test_torch_gpu.py's. Skips only where there is no g++.
+signed-window chain on its teams and on the thread layout), K11's 64-bit
+chain (the same teams over 17 windows), K9's table (the doubling walk,
+then K2's conversion to affine) and K10's subtree kernel (thread
+subtrees, warp shuffles, the last block of a run), built as host C++
+through the shim of lighthouse_tpu_torch.analysis.host_shim (a block's
+threads as std::threads, __syncwarp and __syncthreads as barriers,
+__shfl_down_sync through a slot a thread, the blocks one after another),
+against their plain PyTorch versions on the CPU: limb for limb (the
+ladders, the conversions, the sums), byte for byte (the table, the
+Merkle roots, also against hashlib), verdict for verdict (the check).
+This runs the kernels' own team and block code, branches and barriers on
+the CPU; the card's run is tests/test_torch_gpu.py's. Skips only where
+there is no g++.
 """
 
 import concurrent.futures
+import hashlib
 
 import numpy as np
 import pytest
@@ -33,6 +38,7 @@ from lighthouse_tpu_torch.crypto.bls12_381 import FQ, FQ2, inf, to_affine
 from lighthouse_tpu_torch.ops import bls381 as K2
 from lighthouse_tpu_torch.ops import bls381_pairing as K4
 from lighthouse_tpu_torch.ops import fr as K8
+from lighthouse_tpu_torch.ops import merkle_sharded as K10
 from lighthouse_tpu_torch.ops import msm as K9
 
 
@@ -41,13 +47,14 @@ def shim_libs(tmp_path_factory):
     if host_shim.gxx() is None:
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("host_shim")
-    sources = {"g": "bls381_g.cu", "pairing": "bls381_pairing.cu", "msm": "msm.cu"}
+    sources = {"g": "bls381_g.cu", "pairing": "bls381_pairing.cu", "msm": "msm.cu", "merkle": "merkle_subtree.cu"}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(lambda s: host_shim.build(s, out), sources.values())))
     return {
         "g": host_shim.load(built["g"], K2.LIB.functions),
         "pairing": host_shim.load(built["pairing"], K4.LIB.functions),
         "msm": host_shim.load(built["msm"], K9.LIB.functions),
+        "merkle": host_shim.load(built["merkle"], K10.LIB.functions),
     }
 
 
@@ -246,3 +253,140 @@ def test_msm_table_walk_and_affine_match_plain(shim_libs, n):
     assert torch.equal(xy.view(K9.WINDOWS, n, 2, 12), want.xy)
     assert torch.equal(flags, want.inf)
     assert flags[:, 2].all() and flags.sum() == K9.WINDOWS
+
+
+def test_wide64_chain_matches_plain(shim_libs):
+    """K11's 64-bit chain (bls_g1_scalar_mul_wide64: [n] int64 draws read
+    unsigned, 17 windows, K9's 4-lane teams, 8 a block) on 45 lanes (the
+    last block part full): the scalars 0, 1, 15, 16, 2^63 - 1, 2^63 and
+    2^64 - 1 on Jacobian points (Z != 1), an affine point (Z = 1), an
+    infinity point under a seeded draw, a point of order 3 under 3, 4 and
+    2^63 + 1 (its table's 3 P and the chain's P == Q, P == -Q), seeded draws
+    on the rest; limb-equal to the plain chain, every infinity out
+    canonical."""
+    rng = np.random.default_rng(27)
+    n = 45
+    pts = bls_g1_points(rng, n)
+    sc = [0, 1, 15, 16, 2**63 - 1, 2**63, 2**64 - 1] + bls_scalars(rng, n - 7)
+    pts[7] = (*to_affine(FQ, pts[7]), 1)
+    pts[8] = inf(FQ)
+    p3 = bls_g1_point_of_order(rng, 3)
+    for j, k in zip((9, 10, 11), (3, 4, 2**63 + 1)):
+        pts[j], sc[j] = p3, k
+    p = torch.from_numpy(K2.g1_to_limbs(pts))
+    k = K2.scalars_to_tensor(sc)
+    out = torch.full_like(p, -1)
+    lib = shim_libs["g"]
+    assert host_shim.call(lib.bls_g1_scalar_mul_wide64, p.data_ptr(), k.data_ptr(), out.data_ptr(), n, None) == 0
+    assert torch.equal(out, K2.scalar_mul_wide64_plain(p, k))
+    infinity = ~out[:, 2].any(-1)
+    assert infinity[[0, 8, 9]].all()  # k = 0, an infinity point, 3 P3
+    assert torch.equal(out[infinity], torch.from_numpy(K2.g1_to_limbs([inf(FQ)] * int(infinity.sum()))))
+
+
+def _hashlib_root(leaves: np.ndarray) -> bytes:
+    nodes = [row.tobytes() for row in leaves]
+    while len(nodes) > 1:
+        nodes = [hashlib.sha256(nodes[i] + nodes[i + 1]).digest() for i in range(0, len(nodes), 2)]
+    return nodes[0]
+
+
+def _merkle_launch(lib, leaves: np.ndarray, levels: int, leaf: int, threads: int) -> np.ndarray:
+    """K10's launcher over runs of 2^levels leaves with this plan: the
+    block roots' scratch at its size with a sentinel row past it, the run
+    counts left as garbage (the launcher zeroes them)."""
+    m = leaves.shape[0]
+    runs = m >> levels
+    blocks_per_run = (1 << (levels - leaf)) // threads
+    out = np.full((runs, 32), 0xEE, dtype=np.uint8)
+    roots = np.full((runs * blocks_per_run + 1, 32), 0x5A, dtype=np.uint8)
+    counters = np.full(runs, 7, dtype=np.uint32)
+    args = (leaves.ctypes.data, out.ctypes.data, roots.ctypes.data, counters.ctypes.data, m, levels, leaf, threads, None)
+    assert host_shim.call(lib.merkle_subtree_roots, *args) == 0
+    assert (roots[-1] == 0x5A).all(), "a block root past the scratch"
+    return out
+
+
+@pytest.mark.parametrize("depth", range(1, 13))
+def test_merkle_subtree_roots_match_plain_and_hashlib(shim_libs, depth):
+    """K10's kernel on 2^1 .. 2^12 leaves with the wrapper's plan
+    (merkle_sharded.subtree_plan: at these depths a pair a thread, up to
+    256 threads a block; from 2^10 the last of 2, 4 or 8 blocks reduces
+    their roots): one root, byte-equal to the plain version and to a
+    hashlib fold."""
+    leaves = np.random.default_rng(30 + depth).integers(0, 256, (1 << depth, 32), dtype=np.uint8)
+    got = _merkle_launch(shim_libs["merkle"], leaves, depth, *K10.subtree_plan(depth))
+    want = K10.merkle_subtree_roots_plain(torch.from_numpy(leaves), depth).numpy()
+    assert np.array_equal(got, want)
+    assert got[0].tobytes() == _hashlib_root(leaves)
+
+
+@pytest.mark.parametrize(
+    "levels, leaf, threads",
+    [
+        # a thread's 16 leaves (four groups of four, the binary counter's
+        # merges), 8 blocks a run; the last block 4 roots a thread
+        (12, 4, 8),
+        (12, 4, 64),
+        # 8 and 4 leaves a thread; the last block 2, 16 and 1 roots a thread
+        (12, 3, 16),
+        (12, 2, 8),
+        (12, 2, 32),
+        # blocks narrower than a warp, one block a run: runs side by side
+        (6, 4, 4),
+        (7, 3, 16),
+        (8, 4, 4),
+        # the last block of 64 threads over 64 roots: its levels in shared
+        # memory, then warp 0; 2 runs of 2^12
+        (12, 1, 64),
+        (13, 1, 64),
+        # the wrapper's 512 threads a block, four levels in shared memory
+        (13, 1, 512),
+    ],
+)
+def test_merkle_subtree_plans_match_plain(shim_libs, levels, leaf, threads):
+    """Other plans than the wrapper's, on 2^13 leaves (one run or several),
+    to reach each path of the kernel: the thread subtrees of 4, 8 and 16
+    nodes, the last block's own subtrees of block roots, warps of fewer
+    than 32 threads, levels in shared memory. Each run's root byte-equal
+    to the plain version and to hashlib."""
+    leaves = np.random.default_rng(40 + levels).integers(0, 256, (1 << 13, 32), dtype=np.uint8)
+    got = _merkle_launch(shim_libs["merkle"], leaves, levels, leaf, threads)
+    want = K10.merkle_subtree_roots_plain(torch.from_numpy(leaves), levels).numpy()
+    assert np.array_equal(got, want)
+    assert got[-1].tobytes() == _hashlib_root(leaves[-(1 << levels) :])
+
+
+def test_merkle_subtree_refuses_plans_it_cannot_run(shim_libs):
+    """cudaErrorInvalidValue (1), and no launch, for a plan outside the
+    kernel: no leaf level or more than 4, more levels a thread than a run
+    has, threads not a power of two or above 512 or above the run's,
+    more than 16 block roots a thread for the last block, more than 30
+    levels, nodes not whole runs."""
+    lib = shim_libs["merkle"]
+    leaves = np.zeros((1 << 13, 32), dtype=np.uint8)
+    for nodes, levels, leaf, threads in [
+        (8192, 12, 0, 8),
+        (8192, 12, 5, 8),
+        (8192, 2, 3, 1),
+        (8192, 12, 2, 3),
+        (8192, 12, 2, 1024),
+        (8192, 12, 3, 1024),
+        (8192, 12, 4, 1),
+        (1 << 25, 25, 4, 256),
+        (1 << 31, 31, 4, 512),
+        (8192 - 16, 12, 2, 8),
+    ]:
+        assert lib.merkle_subtree_roots(leaves.ctypes.data, None, None, None, nodes, levels, leaf, threads, None) == 1
+
+
+def test_replaced_merkle_levels_kernel_matches_plain(shim_libs):
+    """The kernel K10's replaced (merkle_subtree_levels, kept for
+    chip_smoke.py's comparison: 9 levels a launch in shared memory) on
+    2^12 leaves in runs of 2^9 and 2^3, byte-equal to the plain version."""
+    leaves = np.random.default_rng(50).integers(0, 256, (1 << 12, 32), dtype=np.uint8)
+    for levels in (9, 3):
+        out = np.zeros((leaves.shape[0] >> levels, 32), dtype=np.uint8)
+        lib = shim_libs["merkle"]
+        assert host_shim.call(lib.merkle_subtree_levels, leaves.ctypes.data, out.ctypes.data, 1 << 12, levels, None) == 0
+        assert np.array_equal(out, K10.merkle_subtree_roots_plain(torch.from_numpy(leaves), levels).numpy())

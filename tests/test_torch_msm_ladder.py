@@ -1,6 +1,8 @@
 """The port's ladder MSM (ops/msm.py `g1_msm_ladder`, the K9 ladder: the
 256-bit G1 ladder of ops/bls381.py `scalar_mul_wide` and K2's tree sum)
-against the JAX package's `g1_msm_device` on its ladder path
+and K11's 64-bit chain (`scalar_mul_wide64`, the same signed-window
+chain over 17 windows) against the JAX package's `g1_msm_device` on its
+ladder path
 (LIGHTHOUSE_TPU_MSM=ladder, as tests/test_device_kzg.py runs it), the
 port's Pippenger and the host bigint oracle. The port runs the kernels'
 plain PyTorch versions on the CPU. Tolerance: exact equality of affine
@@ -94,18 +96,61 @@ def test_wide_chain_equals_host_and_jax_ladder():
     assert rows[1] is None and K2.g1_from_limbs(got[1].numpy())[0] == (1, 1, 0)
 
 
-@pytest.mark.parametrize("case", ["edge", "seeded"])
-def test_wide_digits_recode_the_scalar(case):
-    """The Booth digits of `wide_digits` (the kernel's `wide_digit`): 65
-    signed digits of 4 bits, |d| <= 8, that sum back to the scalar and
-    equal the recoding of its integer bit by bit; on
-    chip_smoke.wide_edge_scalars and on 64 seeded scalars below r."""
-    from chip_smoke import fr_scalars, wide_edge_scalars
+# K11's 64-bit chain: the recoding's and the unsigned read's edges
+WIDE64_EDGE_SCALARS = [0, 1, 15, 16, 2**63 - 1, 2**63, 2**64 - 1]
 
-    scalars = wide_edge_scalars() if case == "edge" else fr_scalars(np.random.default_rng(8), 64)
-    dig = K2.wide_digits(K8.as_i32(K8.fr_to_words(scalars)))
+
+def test_wide64_chain_equals_host_and_jax_ladder():
+    """K11's 64-bit signed-window chain (`scalar_mul_wide64_plain`, the
+    kernel's steps over 17 windows) at 12 lanes: the scalars 0, 1, 15, 16,
+    2^63 - 1, 2^63 and 2^64 - 1 (the last two arrive as negative int64)
+    and seeded draws, on points with Z != 1 and an infinity input, against
+    the host's pt_mul and the JAX package's 64-bit RLC ladder
+    (`batch_g1_scalar_mul` over 64 bits, the per-point step of its
+    `sharded_rlc_g1_fn`), in affine integers (None at infinity); the
+    wrapper on a CPU tensor gives the plain chain's limbs."""
+    from chip_smoke import bls_g1_points, bls_scalars
+    from lighthouse_tpu.ops.bls381 import batch_g1_scalar_mul, g1_points_from_device, g1_points_to_device, scalars_to_bits
+    from lighthouse_tpu_torch.crypto.bls12_381 import inf
+
+    rng = np.random.default_rng(9)
+    scalars = WIDE64_EDGE_SCALARS + bls_scalars(rng, 5)
+    pts = bls_g1_points(rng, len(scalars))
+    pts[8] = inf(FQ)
+    p = torch.from_numpy(K2.g1_to_limbs(pts))
+    k = K2.scalars_to_tensor(scalars)
+    assert bool((k[5:7] < 0).all())
+    got = K2.scalar_mul_wide64_plain(p, k)
+    assert torch.equal(K2.scalar_mul_wide64(p, k), got)
+    rows = [to_affine(FQ, row) for row in K2.g1_from_limbs(got.numpy())]
+    jax_rows = g1_points_from_device(batch_g1_scalar_mul(*g1_points_to_device(pts), scalars_to_bits(scalars, 64)))
+    assert rows == [to_affine(FQ, pt_mul(FQ, q, s)) for q, s in zip(pts, scalars)]
+    assert rows == [jax_to_affine(JFQ, row) for row in jax_rows]
+    assert rows[0] is None and rows[8] is None
+    assert K2.g1_from_limbs(got[[0, 8]].numpy()) == [(1, 1, 0)] * 2
+
+
+@pytest.mark.parametrize("case", ["edge", "seeded", "edge64", "seeded64"])
+def test_wide_digits_recode_the_scalar(case):
+    """The Booth digits of `wide_digits` (the kernel's `wide_digit`):
+    signed digits of 4 bits, |d| <= 8, that sum back to the scalar and
+    equal the recoding of its integer bit by bit. K9's 256-bit words, 65
+    digits: chip_smoke.wide_edge_scalars and 64 seeded scalars below r;
+    K11's 64-bit draws as `u64_words` of int64 bit patterns, 17 digits:
+    WIDE64_EDGE_SCALARS and 64 seeded draws."""
+    from chip_smoke import bls_scalars, fr_scalars, wide_edge_scalars
+
+    rng = np.random.default_rng(8)
+    if case.endswith("64"):
+        bits = 64
+        scalars = WIDE64_EDGE_SCALARS if case == "edge64" else bls_scalars(rng, 64)
+        dig = K2.wide_digits(K2.u64_words(K2.scalars_to_tensor(scalars)))
+    else:
+        bits = 256
+        scalars = wide_edge_scalars() if case == "edge" else fr_scalars(rng, 64)
+        dig = K2.wide_digits(K8.as_i32(K8.fr_to_words(scalars)))
     w = K2.WIDE_WINDOW
-    assert dig.shape == (len(scalars), 256 // w + 1)
+    assert dig.shape == (len(scalars), bits // w + 1)
     assert int(dig.abs().max()) <= 1 << (w - 1)
 
     def bit(k, j):
@@ -115,5 +160,5 @@ def test_wide_digits_recode_the_scalar(case):
         assert sum(d << (i * w) for i, d in enumerate(row)) == k
         assert row == [
             sum(bit(k, i * w + j) << j for j in range(w - 1)) + bit(k, i * w - 1) - (bit(k, i * w + w - 1) << (w - 1))
-            for i in range(256 // w + 1)
+            for i in range(bits // w + 1)
         ]

@@ -123,14 +123,32 @@ def test_plain_subtree_reduction_equals_hashlib(depth):
 def test_subtree_launch_refuses_bad_shapes():
     with pytest.raises(ValueError):
         K10.merkle_subtree_roots(torch.zeros((12, 32), dtype=torch.uint8), 3)
-    with pytest.raises(ValueError):
-        K10.merkle_subtree_roots(torch.zeros((1024, 32), dtype=torch.uint8), 10)
+    # more levels than one launch reduces (a meta tensor: no memory)
+    too_deep = K10.MAX_LEVELS + 1
+    with pytest.raises(ValueError, match="one launch"):
+        K10.merkle_subtree_roots(torch.zeros((1 << too_deep, 32), dtype=torch.uint8, device="meta"), too_deep)
     with pytest.raises(ValueError):
         K10.subtree_root(torch.zeros((6, 32), dtype=torch.uint8))
     with pytest.raises(ValueError):
         K10.build_sharded_merkle(3, 16, "cpu")
     with pytest.raises(ValueError):
         K10.build_sharded_merkle(4, 12, "cpu")
+
+
+@pytest.mark.parametrize("levels", range(1, K10.MAX_LEVELS + 1))
+def test_subtree_plan_fits_the_kernel(levels):
+    """The launch plan at every depth one launch takes is one the kernel
+    accepts (csrc/merkle_subtree.cu): 1 to 4 levels a thread, a power of
+    two of threads a block up to 512 and no more than a run has, and at
+    most 16 block roots a thread for the last block; 2^20 leaves are 128
+    blocks of 512 threads, 16 leaves a thread."""
+    leaf, threads = K10.subtree_plan(levels)
+    per_run = 1 << (levels - leaf)
+    assert 1 <= leaf <= min(levels, K10.MAX_LEAF_LEVELS)
+    assert threads & (threads - 1) == 0 and 1 <= threads <= min(K10.BLOCK_THREADS, per_run)
+    assert per_run // threads <= threads << K10.MAX_LEAF_LEVELS
+    if levels == 20:
+        assert (leaf, threads, per_run // threads) == (4, 512, 128)
 
 
 @pytest.mark.parametrize("n_ranks", [2, 4, 8])
