@@ -24,8 +24,11 @@ each, any failure ends the run with a non-zero exit code:
    the affine conversions also
    over three blocks with infinity lanes and at 4,096 lanes;
    each with its time, the plain version's time and its bound; the
-   epoch-sweep kernel equal to its plain version at 2^20 validators,
-   in and out of the inactivity leak, with edge rows; and, on the mainnet
+   epoch-sweep kernel (one cooperative launch) and the two-kernel sweep it
+   replaced, each equal to its plain version at 2^20 validators, in and
+   out of the inactivity leak, with edge rows, and at 3.5 M (past the
+   shared-memory keep), timed in turns in the same call, with the
+   wrapper's copies split into uploads, kernel and downloads; and, on the mainnet
    KZG ceremony's setup, the KZG kernels: the barycentric evaluation at
    [1, 4096], [6, 4096] (also with one z on the domain) and [192, 4096],
    the opening quotient at 4096 lanes (z off
@@ -110,6 +113,7 @@ from lighthouse_tpu_torch.crypto.kzg import Kzg, TrustedSetup
 from lighthouse_tpu_torch.ops import bls381 as k_g
 from lighthouse_tpu_torch.ops import bls381_htc as k_htc
 from lighthouse_tpu_torch.ops import bls381_pairing as k_pair
+from lighthouse_tpu_torch.ops import epoch_sweep as k7
 from lighthouse_tpu_torch.ops import fr as k_fr
 from lighthouse_tpu_torch.ops import merkle_sharded as k_ms
 from lighthouse_tpu_torch.ops import msm as k_msm
@@ -202,6 +206,16 @@ def bary_fr_muls(m: int, n: int) -> int:
 # needs.
 EPOCH_SWEEP_BYTES = 6 * 8 + 1 + 1 + 2 * 8
 EPOCH_SWEEP_MIN_OPS = 160
+# The bytes a validator moves to and from device memory in each design:
+# the cooperative kernel's while its tiles fit in shared memory (the
+# bound's), and the replaced two-kernel sweep's, whose second kernel reads
+# the five columns of the sums again (26 bytes).
+EPOCH_SWEEP_DESIGN_BYTES = {"cooperative": EPOCH_SWEEP_BYTES, "two_pass": EPOCH_SWEEP_BYTES + 26}
+# Validators above what the cards' shared memory keeps (~3.3 M on 132 SMs).
+EPOCH_SWEEP_ABOVE_KEEP = 3_500_000
+# The cooperative launch's shapes timed beside the wrapper's: (threads a
+# block, blocks an SM).
+EPOCH_SWEEP_SHAPES = ((1024, 1), (512, 2), (256, 4))
 
 # The main path's size: a mainnet registry and a run of block imports.
 N_VALIDATORS = 1_000_000
@@ -1025,8 +1039,6 @@ def phase_build() -> dict:
     report each one's seconds, registers and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from lighthouse_tpu_torch.ops import epoch_sweep as k7
-
     libs = {
         "bls381_g": k_g.LIB,
         "bls381_pairing": k_pair.LIB,
@@ -1559,15 +1571,71 @@ def _u64_max_abs_err(got: np.ndarray, want: np.ndarray) -> int:
     return int(np.where(got > want, got - want, want - got).max()) if got.size else 0
 
 
-def phase_epoch_sweep_check(seed: int) -> dict:
-    """The epoch-sweep kernel equal to its plain version on the card at
-    2^20 validators, out of the inactivity leak and in it, with the edge
-    rows of `epoch_sweep_inputs`; its time on device-resident columns, the
-    plain version's, the wrapper's with the copies to and from the card
-    (from writable columns and from read-only ones, as the main path's),
-    and its bound."""
-    from lighthouse_tpu_torch.ops import epoch_sweep as k7
+def _sweep_err(got: list, want: list) -> int:
+    return max(_u64_max_abs_err(g, w) for g, w in zip(got, want))
 
+
+def _sweep_plan_info(plan: tuple) -> dict:
+    grid, threads, tile, keep = plan
+    return {
+        "grid": grid, "threads": threads, "tile": tile, "keep": keep,
+        "kept_validators": grid * keep,
+        "dynamic_shared_bytes": k7.KEPT_BYTES * keep,
+    }
+
+
+def _sweep_wrapper_split(cols: dict, scalars: np.ndarray, dev) -> tuple:
+    """`epoch_sweep_arrays`' three steps, called one by one with CUDA
+    events between them: the columns' uploads (`sweep_tensors`), the
+    kernel (`epoch_sweep`), the two downloads (`sweep_results`) (ms on the
+    card's clock), and the host's ms for each. Returns (split, results)."""
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    h = [time.perf_counter()]
+    ev[0].record()
+    tensors = k7.sweep_tensors(cols, scalars, dev)
+    ev[1].record()
+    h.append(time.perf_counter())
+    out = k7.epoch_sweep(*tensors)
+    ev[2].record()
+    h.append(time.perf_counter())
+    results = k7.sweep_results(out)
+    ev[3].record()
+    torch.cuda.synchronize()
+    h.append(time.perf_counter())
+    split = {
+        "uploads_ms": ev[0].elapsed_time(ev[1]),
+        "kernel_ms": ev[1].elapsed_time(ev[2]),
+        "downloads_ms": ev[2].elapsed_time(ev[3]),
+        "host_ms": {k: (b - a) * 1e3 for k, a, b in zip(("uploads", "launch", "downloads"), h, h[1:])},
+        "total_ms": (h[3] - h[0]) * 1e3,
+        "upload_bytes": sum(int(v.nbytes) for v in cols.values()) + int(scalars.nbytes),
+        "download_bytes": 2 * 8 * len(cols["balances"]),
+    }
+    return split, results
+
+
+def _sweep_registers() -> dict:
+    usage = ptxas_usage(k7.LIB.info.get("ptxas", ""))
+    return {
+        name: next((v for k, v in usage.items() if name in k), None)
+        for name in ("sweep_coop", "sweep_sums", "sweep_apply")
+    }
+
+
+def phase_epoch_sweep_check(seed: int) -> dict:
+    """The epoch-sweep kernel (one cooperative launch) and the two-kernel
+    sweep it replaced, each equal to the plain version on the card at 2^20
+    validators, out of the inactivity leak and in it, with the edge rows of
+    `epoch_sweep_inputs`, and at EPOCH_SWEEP_ABOVE_KEEP (past the
+    shared-memory keep). Times in the same call, in turns (new, replaced,
+    replaced, new): back to back (`_time_ms`, 50 reps, the host's launch
+    overhead inside) and on the card alone (`_gpu_ms`); the cooperative
+    launch at each of EPOCH_SWEEP_SHAPES; the plain version's; the
+    wrapper's with the copies to and from the card (from writable columns
+    and from read-only ones, as the main path's), split into uploads,
+    kernel and downloads; launch shapes, registers, the bytes each design
+    moves, and the bound."""
     dev = torch.device("cuda")
     n = 1 << 20
     rng = np.random.default_rng(seed + 7)
@@ -1575,15 +1643,40 @@ def phase_epoch_sweep_check(seed: int) -> dict:
     for leak in (False, True):
         cols, scalars = epoch_sweep_inputs(rng, n, leak)
         args = k7.sweep_tensors(cols, scalars, dev)
-        got = [t.cpu().numpy().view(np.uint64) for t in k7.epoch_sweep(*args)]
-        want = [t.cpu().numpy().view(np.uint64) for t in k7.epoch_sweep_plain(*args)]
+        want = k7.sweep_results(k7.epoch_sweep_plain(*args))
+        got = k7.sweep_results(k7.epoch_sweep(*args))
+        replaced = k7.sweep_results(k7.epoch_sweep_two_pass(*args))
         torch.cuda.synchronize()
-        err = max(_u64_max_abs_err(g, w) for g, w in zip(got, want))
-        if err:
-            raise AssertionError(f"epoch_sweep (in_leak={leak}) differs from its plain version: {err}")
-        products = cols["effective_balance"].astype(object) * cols["scores"].astype(object)
-        ms = _time_ms(lambda: k7.epoch_sweep(*args), reps=50)
+        err, replaced_err = _sweep_err(got, want), _sweep_err(replaced, want)
+        if err or replaced_err:
+            raise AssertionError(
+                f"epoch_sweep (in_leak={leak}) differs from its plain version: {err}; the replaced sweep: {replaced_err}"
+            )
+
+        def new():
+            return k7.epoch_sweep(*args)
+
+        def old():
+            return k7.epoch_sweep_two_pass(*args)
+
+        turns = [_time_ms(fn, reps=50) for fn in (new, old, old, new)]
+        gpu = _gpu_ms([new, old, old, new])
         _, plain_ms = _plain_ms(lambda: k7.epoch_sweep_plain(*args))
+        shapes = {}
+        if not leak:
+            tensors = dict(zip(k7.COLUMNS, args[:8]))
+            for threads, bps in EPOCH_SWEEP_SHAPES:
+                plan = k7._shaped_plan(dev, n, threads, bps)
+                shape_err = _sweep_err(k7.sweep_results(k7._launch(tensors, args[8], plan)), want)
+                if shape_err:
+                    raise AssertionError(f"epoch_sweep at {threads} threads x {bps} differs from plain: {shape_err}")
+                fn = lambda plan=plan: k7._launch(tensors, args[8], plan)  # noqa: E731
+                shapes[f"{threads}x{bps}"] = {
+                    **_sweep_plan_info(plan),
+                    "ms": _time_ms(fn, reps=50),
+                    "gpu_ms": _gpu_ms([fn])[0],
+                }
+        products = cols["effective_balance"].astype(object) * cols["scores"].astype(object)
         t0 = time.perf_counter()
         k7.epoch_sweep_arrays(cols, scalars, dev)
         torch.cuda.synchronize()
@@ -1596,28 +1689,77 @@ def phase_epoch_sweep_check(seed: int) -> dict:
         k7.epoch_sweep_arrays(frozen, scalars, dev)
         torch.cuda.synchronize()
         wrapper_frozen_ms = (time.perf_counter() - t0) * 1e3
+        split, split_out = _sweep_wrapper_split(frozen, scalars, dev)
+        if _sweep_err(split_out, want):
+            raise AssertionError("epoch_sweep_arrays' steps differ from the plain version")
         cases[f"in_leak={int(leak)}"] = {
             "max_abs_err": err,
-            "ms": ms,
+            "replaced_max_abs_err": replaced_err,
+            "ms": (turns[0] + turns[3]) / 2,
+            "replaced_ms": (turns[1] + turns[2]) / 2,
+            "ms_in_turns": turns,
+            "gpu_ms": (gpu[0] + gpu[3]) / 2,
+            "replaced_gpu_ms": (gpu[1] + gpu[2]) / 2,
+            "gpu_ms_in_turns": gpu,
             "plain_ms": plain_ms,
+            "shapes": shapes,
             "wrapper_with_copies_ms": wrapper_ms,
             "wrapper_frozen_columns_ms": wrapper_frozen_ms,
+            "wrapper_frozen_columns_split": split,
             "rows_product_ge_2_63": int((products >= 1 << 63).sum()),
             "rows_far_future_exit": int((cols["exit_epoch"] == np.uint64(FAR_FUTURE_EPOCH)).sum()),
             "rows_balance_to_zero": int((got[0] == 0).sum()),
         }
-        times[leak] = (ms, plain_ms)
+        times[leak] = (cases[f"in_leak={int(leak)}"]["ms"], plain_ms)
+        del args
+
+    # past the shared-memory keep: the tiles' tails re-read from device memory
+    big = EPOCH_SWEEP_ABOVE_KEEP
+    cols, scalars = epoch_sweep_inputs(rng, big, False)
+    args = k7.sweep_tensors(cols, scalars, dev)
+    plan = k7.launch_plan(dev, big)
+    want = k7.sweep_results(k7.epoch_sweep_plain(*args))
+    got_big = _sweep_err(k7.sweep_results(k7.epoch_sweep(*args)), want)
+    replaced_big = _sweep_err(k7.sweep_results(k7.epoch_sweep_two_pass(*args)), want)
+    if got_big or replaced_big or plan[3] >= plan[2]:
+        raise AssertionError(
+            f"epoch_sweep at {big} validators (plan {plan}): {got_big}, replaced {replaced_big}, or nothing re-read"
+        )
+    big_turns = [_time_ms(fn, reps=20) for fn in (
+        lambda: k7.epoch_sweep(*args), lambda: k7.epoch_sweep_two_pass(*args),
+        lambda: k7.epoch_sweep_two_pass(*args), lambda: k7.epoch_sweep(*args),
+    )]
+    above_keep = {
+        "validators": big,
+        **_sweep_plan_info(plan),
+        "re_read_validators": big - plan[0] * plan[3],
+        "max_abs_err": got_big,
+        "replaced_max_abs_err": replaced_big,
+        "ms": (big_turns[0] + big_turns[3]) / 2,
+        "replaced_ms": (big_turns[1] + big_turns[2]) / 2,
+        "bound_ms_bytes": EPOCH_SWEEP_BYTES * big / HBM_BYTES_PER_S * 1e3,
+    }
+    del args
+
     ops_s = EPOCH_SWEEP_MIN_OPS * n / INT32_OPS_PER_S
     bytes_s = EPOCH_SWEEP_BYTES * n / HBM_BYTES_PER_S
+    plan = k7.launch_plan(dev, n)
     out = {
         "phase": "kernel_checks",
         "kernel": "epoch_sweep",
         "validators": n,
         "cases": cases,
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "max_abs_err": max(max(c["max_abs_err"], c["replaced_max_abs_err"]) for c in cases.values()),
         "ms": times[False][0],
+        "replaced_ms": cases["in_leak=0"]["replaced_ms"],
+        "gpu_ms": cases["in_leak=0"]["gpu_ms"],
+        "replaced_gpu_ms": cases["in_leak=0"]["replaced_gpu_ms"],
         "plain_ms": times[False][1],
         "library_ms": "none (no PyTorch call computes the sweep)",
+        "launch": {**_sweep_plan_info(plan), "static_shared_bytes": k7._limits(dev, plan[1], 0)[1]},
+        "registers": _sweep_registers(),
+        "device_bytes_per_validator": EPOCH_SWEEP_DESIGN_BYTES,
+        "above_keep": above_keep,
         "bytes_per_validator": EPOCH_SWEEP_BYTES,
         "min_ops_per_validator": EPOCH_SWEEP_MIN_OPS,
         "bound_ms_ops": ops_s * 1e3,
@@ -2255,7 +2397,6 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
     import statistics
 
     from lighthouse_tpu_torch.crypto import bls
-    from lighthouse_tpu_torch.ops import epoch_sweep as k7
     from lighthouse_tpu_torch.state_processing import (
         BlockProcessingError,
         BlockSignatureStrategy,
@@ -3491,6 +3632,8 @@ def main(argv=None) -> int:
                     "bound_ms": sweep_check["bound_ms"],
                     "bound_by": sweep_check["bound_by"],
                     "library_ms": None,
+                    # the card alone; the replaced two-kernel sweep in the same call
+                    **{key: sweep_check[key] for key in ("gpu_ms", "replaced_ms", "replaced_gpu_ms")},
                 }
             ]
             + [

@@ -4,7 +4,10 @@ updates and inactivity penalties in one pass over the registry's columns.
 Counterpart of lighthouse_tpu/ops/epoch_sweep.py. Its kernel,
 ``csrc/epoch_sweep.cu``, replaces that module's jitted ``epoch_sweep``
 (line 39 there): the same function, bit for bit, on the same inputs. It is
-bound by bytes (66 per validator); the source's header derives that.
+bound by bytes (66 per validator); the source's header derives that. A
+sweep is one cooperative launch of one wave of blocks (`launch_plan`): the
+sums, a grid barrier, then the updates, with what the second phase needs
+of the first kept in shared memory.
 
 Every u64 quantity is held in an int64 tensor as its bit pattern (torch
 has too few uint64 operations). The kernel computes in native unsigned 64
@@ -22,6 +25,8 @@ to the plain version. A failed build or launch raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import warnings
 
 import numpy as np
@@ -50,15 +55,35 @@ SCALARS = (
     "effective_balance_increment",
 )
 
-LIB = CudaLibrary("epoch_sweep.cu", {"epoch_sweep": ("p",) * 12 + ("i64", "p")})
+LIB = CudaLibrary(
+    "epoch_sweep.cu",
+    {
+        "epoch_sweep": ("p",) * 12 + ("i64", "i32", "i32", "i64", "i64", "p"),
+        "epoch_sweep_limits": ("i32", "i64", "p"),
+        "epoch_sweep_two_pass": ("p",) * 12 + ("i64", "p"),
+    },
+)
 
-# Kernel launches (one per sweep: the reduction and the elementwise pass
-# from one launcher), counted where the kernel launches and nowhere else.
-COUNTS = {"launches": 0}
+# Kernel launches, counted where each launches and nowhere else: the
+# sweep's cooperative kernel (one a sweep), and the replaced two-kernel
+# sweep (`epoch_sweep_two_pass`, run only to compare).
+COUNTS = {"launches": 0, "two_pass": 0}
 
 
 def reset_counts() -> None:
-    COUNTS["launches"] = 0
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+# The cooperative launch's shape: THREADS a block, BLOCKS_PER_SM blocks an
+# SM, tiles starting on TILE_ALIGN validators. A kept validator takes
+# KEPT_BYTES of dynamic shared memory (its effective balance and a byte of
+# bits); SHARED_RESERVED is the shared memory the card reserves a block.
+THREADS = 512
+BLOCKS_PER_SM = 2
+TILE_ALIGN = 32
+KEPT_BYTES = 9
+SHARED_RESERVED = 1024
 
 
 # The [n] columns, in the kernel's argument order, and their numpy types.
@@ -79,14 +104,16 @@ _MASK63 = (1 << 63) - 1
 _MASK64 = (1 << 64) - 1
 
 
+_DTYPES = {k: torch.int64 for k in COLUMNS}
+_DTYPES.update(slashed=torch.bool, prev_flags=torch.uint8)
+
+
 def _check(cols: dict, scalars: torch.Tensor) -> int:
     n = cols["effective_balance"].shape[0]
     dev = cols["effective_balance"].device
-    want = {k: torch.int64 for k in COLUMNS}
-    want.update(slashed=torch.bool, prev_flags=torch.uint8)
-    for name, dtype in want.items():
+    for name, dtype in _DTYPES.items():
         t = cols[name]
-        if t.dtype != dtype or t.dim() != 1 or t.shape[0] != n:
+        if t.dtype != dtype or t.shape != (n,):
             raise ValueError(f"{name}: expected [{n}] {dtype}, got {list(t.shape)} {t.dtype}")
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous tensors on one device ({dev})")
@@ -194,22 +221,99 @@ def epoch_sweep_plain(
 # ---------------------------------------------------------------------------
 
 
-def _launch(cols: dict, scalars: torch.Tensor):
-    """The one launch site: the sweep's two kernels on the card."""
+def sweep_plan(n: int, max_grid: int, threads: int, keep_cap: int, keep: int | None = None) -> tuple:
+    """(grid, tile, keep) of the cooperative sweep over n validators: at
+    most `max_grid` blocks (the card's one wave), no more than n needs at
+    `threads` a block, each a tile of validators starting on TILE_ALIGN,
+    the first `keep` of each tile kept in shared memory (at most
+    `keep_cap`, or `keep` where given, to force the re-read)."""
+    grid = max(1, min(max_grid, -(-n // threads)))
+    tile = -(-(-(-n // grid)) // TILE_ALIGN) * TILE_ALIGN
+    grid = max(1, -(-n // max(tile, 1)))  # no block left without validators
+    return grid, tile, min(tile, keep_cap if keep is None else keep)
+
+
+def _limits(dev: torch.device, threads: int, shared: int) -> tuple:
+    """(blocks an SM holds, static shared bytes, shared bytes a block may
+    have, an SM's) for the kernel at `threads` and `shared` kept bytes."""
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(dev):
+        err = LIB.load().epoch_sweep_limits(threads, shared, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"epoch_sweep_limits failed with CUDA error {err}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _shaped_plan(dev: torch.device, n: int, threads: int, blocks_per_sm: int, keep: int | None = None) -> tuple:
+    """(grid, threads, tile, keep) of the cooperative sweep over n
+    validators on `dev`: one wave of `blocks_per_sm` blocks of `threads`
+    an SM (fewer where the card holds fewer), each keeping as many
+    validators as its share of the SM's shared memory holds, or `keep`."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, static, optin, per_sm = _limits(dev, threads, 0)
+    for bps in range(blocks_per_sm, 0, -1):
+        budget = min(optin, per_sm // bps - SHARED_RESERVED) - static
+        grid, tile, k = sweep_plan(n, sms * bps, threads, budget // KEPT_BYTES, keep)
+        if grid <= sms * _limits(dev, threads, KEPT_BYTES * k)[0]:
+            return grid, threads, tile, k
+    raise RuntimeError(f"epoch sweep: no block of {threads} threads fits an SM")
+
+
+def launch_plan(dev: torch.device, n: int) -> tuple:
+    """(grid, threads, tile, keep) of the sweep's launch over n validators
+    on `dev`: BLOCKS_PER_SM blocks of THREADS an SM, in one wave."""
+    return _shaped_plan(dev, n, THREADS, BLOCKS_PER_SM)
+
+
+def _launch(cols: dict, scalars: torch.Tensor, plan: tuple | None = None):
+    """The one launch site of the sweep's kernel: one cooperative launch
+    on the card, shaped by `launch_plan`, or by `plan` ((grid, threads,
+    tile, keep), from `_shaped_plan`) where a comparison gives one."""
     n = _check(cols, scalars)
     dev = cols["effective_balance"].device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
+    grid, threads, tile, keep = plan or launch_plan(dev, n)
+    # one allocation: the two results, then the [grid][3] partial sums
+    out = torch.empty(2 * n + 3 * grid, dtype=torch.int64, device=dev)
+    new_balances, new_scores, partials = out[:n], out[n : 2 * n], out[2 * n :]
+    LIB.launch(
+        "epoch_sweep",
+        *(cols[k].data_ptr() for k in COLUMNS),
+        scalars.data_ptr(), partials.data_ptr(), new_balances.data_ptr(), new_scores.data_ptr(),
+        n, grid, threads, tile, keep,
+        device=dev,
+    )
+    COUNTS["launches"] += 1
+    return new_balances, new_scores
+
+
+def epoch_sweep_two_pass(
+    effective_balance, slashed, activation_epoch, exit_epoch, withdrawable_epoch,
+    prev_flags, scores, balances, scalars,
+):
+    """The replaced sweep on CUDA tensors (a memset, a reduction with
+    atomics, an elementwise pass that reads the columns again), kept to
+    compare with the cooperative kernel. Returns (new_balances, new_scores)."""
+    cols = dict(zip(COLUMNS, (
+        effective_balance, slashed, activation_epoch, exit_epoch, withdrawable_epoch,
+        prev_flags, scores, balances,
+    )))
+    n = _check(cols, scalars)
+    dev = effective_balance.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
     sums = torch.empty(3, dtype=torch.int64, device=dev)
     new_balances = torch.empty(n, dtype=torch.int64, device=dev)
     new_scores = torch.empty(n, dtype=torch.int64, device=dev)
     LIB.launch(
-        "epoch_sweep",
+        "epoch_sweep_two_pass",
         *(cols[k].data_ptr() for k in COLUMNS),
         scalars.data_ptr(), sums.data_ptr(), new_balances.data_ptr(), new_scores.data_ptr(), n,
         device=dev,
     )
-    COUNTS["launches"] += 1
+    COUNTS["two_pass"] += 1
     return new_balances, new_scores
 
 
@@ -252,9 +356,15 @@ def sweep_tensors(columns: dict, scalars: np.ndarray, device=None) -> tuple:
     )
 
 
-def epoch_sweep_arrays(columns: dict, scalars: np.ndarray, device=None):
-    """The sweep over numpy columns on `device` or the default one: the
-    columns go there once and the two results come back once. Returns
-    (new_balances, new_scores) as [n] uint64 arrays."""
-    out = epoch_sweep(*sweep_tensors(columns, scalars, device))
+def sweep_results(out: tuple) -> tuple:
+    """The sweep's (new_balances, new_scores) tensors as [n] uint64 numpy
+    arrays: each copied to the host once."""
     return tuple(t.cpu().numpy().view(np.uint64) for t in out)
+
+
+def epoch_sweep_arrays(columns: dict, scalars: np.ndarray, device=None):
+    """The sweep over numpy columns on `device` or the default one, in
+    three steps: the columns go there once (`sweep_tensors`), the sweep
+    (`epoch_sweep`), and the two results come back once (`sweep_results`).
+    Returns (new_balances, new_scores) as [n] uint64 arrays."""
+    return sweep_results(epoch_sweep(*sweep_tensors(columns, scalars, device)))

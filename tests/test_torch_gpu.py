@@ -363,13 +363,15 @@ def test_bls_cuda_backend_verdict(cuda, valid):
     assert bls._BACKENDS["host"].verify_signature_sets(sets, random.Random(7)) is valid
 
 
-@pytest.mark.parametrize("n", [1, 255, 4096, 65_537])
+@pytest.mark.parametrize("n", [1, 255, 4096, 65_537, 3_500_000])
 @pytest.mark.parametrize("leak", [False, True])
 def test_epoch_sweep_matches_plain(cuda, n, leak):
     """The epoch-sweep kernel bit-exact with its plain version on the card,
     with the edge rows of `epoch_sweep_inputs` (FAR_FUTURE_EPOCH epochs,
     slashed validators withdrawable ahead, penalties above the balance,
-    effective_balance * score of 2^63 and more)."""
+    effective_balance * score of 2^63 and more); at 3.5 M validators the
+    tiles pass what shared memory keeps (~3.3 M on 132 SMs) and their tails
+    are read again from device memory."""
     cols, scalars = epoch_sweep_inputs(np.random.default_rng(n + leak), max(n, 128), leak)
     cols = {k: v[:n] for k, v in cols.items()}
     args = K7.sweep_tensors(cols, scalars, cuda)
@@ -383,6 +385,48 @@ def test_epoch_sweep_matches_plain(cuda, n, leak):
     host = K7.epoch_sweep_arrays(cols, scalars)
     for h, g in zip(host, got):
         assert np.array_equal(h, g.cpu().numpy().view(np.uint64))
+    grid, _, tile, keep = K7.launch_plan(args[0].device, n)
+    assert grid * tile >= n and (keep < tile) == (n == 3_500_000)
+
+
+@pytest.mark.parametrize("keep", [0, 1, 100])
+def test_epoch_sweep_re_read_past_a_forced_keep_matches_plain(cuda, keep):
+    """The cooperative kernel keeping only `keep` validators a tile (the
+    rest read again in its second phase) at 65,537 validators."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(keep), 65_537, False)
+    args = K7.sweep_tensors(cols, scalars, cuda)
+    plan = K7._shaped_plan(args[0].device, 65_537, K7.THREADS, K7.BLOCKS_PER_SM, keep)
+    assert plan[3] == keep < plan[2]
+    got = K7._launch(dict(zip(K7.COLUMNS, args[:8])), args[8], plan)
+    for g, w in zip(got, K7.epoch_sweep_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_replaced_two_pass_sweep_matches_plain(cuda):
+    """The two-kernel sweep the cooperative kernel replaced, kept for
+    chip_smoke.py's comparison, on the edge rows at 65,537 validators."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(5), 65_537, True)
+    args = K7.sweep_tensors(cols, scalars, cuda)
+    before = dict(K7.COUNTS)
+    got = K7.epoch_sweep_two_pass(*args)
+    assert K7.COUNTS == {**before, "two_pass": before["two_pass"] + 1}
+    for g, w in zip(got, K7.epoch_sweep_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_epoch_sweep_refuses_a_grid_beyond_one_wave(cuda):
+    """A cooperative grid the card cannot hold at once is refused and
+    raises; nothing falls back, and the next sweep runs."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(6), 4096, False)
+    args = K7.sweep_tensors(cols, scalars, cuda)
+    sms = torch.cuda.get_device_properties(args[0].device).multi_processor_count
+    before = K7.COUNTS["launches"]
+    with pytest.raises(RuntimeError, match="epoch_sweep launch failed"):
+        K7._launch(dict(zip(K7.COLUMNS, args[:8])), args[8], (64 * sms, 1024, 32, 0))
+    assert K7.COUNTS["launches"] == before
+    got = K7.epoch_sweep(*args)
+    for g, w in zip(got, K7.epoch_sweep_plain(*args)):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
