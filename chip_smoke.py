@@ -26,8 +26,9 @@ each, any failure ends the run with a non-zero exit code:
    each with its time, the plain version's time and its bound; the
    epoch-sweep kernel (one cooperative launch) and the two-kernel sweep it
    replaced, each equal to its plain version at 2^20 validators, in and
-   out of the inactivity leak, with edge rows, and at 3.5 M (past the
-   shared-memory keep), timed in turns in the same call, with the
+   out of the inactivity leak, with edge rows, on Electra's rows (effective
+   balances up to 2048 ETH, scores just under the host guard), and at
+   3.5 M (past the shared-memory keep), timed in turns in the same call, with the
    wrapper's copies split into uploads, kernel and downloads; and, on the mainnet
    KZG ceremony's setup, the KZG kernels: the barycentric evaluation at
    [1, 4096], [6, 4096] (also with one z on the domain) and [192, 4096],
@@ -86,7 +87,22 @@ each, any failure ends the run with a non-zero exit code:
    plain version and, on 131 points, to the host;
    (c) the ladder MSM of one seeded blob over the ceremony's 4,096
    Lagrange points, equal to K9 Pippenger's commitment and the plain
-   ladder; (d) ``entry.dryrun_multichip(1, device="cuda")``.
+   ladder; (d) ``entry.dryrun_multichip(1, device="cuda")``;
+9. Electra main path: a copy of phase 6's pre-state upgraded with the
+   port's ``upgrade_to_electra`` (timed), given 5% compounding validators
+   at 32 to 2048 ETH, 256 pending deposits, 64 pending partial withdrawals
+   (8 matured) and 16 pending consolidations, a few validators at the
+   ejection balance and an eth1 deposit tree (``electra_prestate``); then
+   block import across the boundary twice, each from a copy: the Electra
+   epoch (its sweep on the epoch-sweep kernel), a full, really signed
+   Electra block with phase 6's contents plus a proposer and an attester
+   slashing, 16 voluntary exits, 16 BLS-to-execution changes, 4 bridge
+   deposits with proofs from the port's ``DepositTree``, and in the payload
+   16 deposit receipts and 16 withdrawal requests (``ElectraOperations``),
+   under VERIFY_BULK on the ``cuda`` backend, and ``hash_tree_root()``.
+   The sweep must equal the numpy sweep, the root the host-lane fold (the
+   pending lists folded leaf by leaf), the block be accepted and the copies
+   with an exit and with a BLS change signed over another message refused.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -406,7 +422,9 @@ def block_update(state, E, rng: np.random.Generator) -> None:
     state.randao_mixes[epoch % E.EPOCHS_PER_HISTORICAL_VECTOR] = rng.bytes(32)
 
 
-def epoch_sweep_inputs(rng: np.random.Generator, n: int, in_leak: bool) -> tuple[dict, np.ndarray]:
+def epoch_sweep_inputs(
+    rng: np.random.Generator, n: int, in_leak: bool, max_eb_eth: int = 32
+) -> tuple[dict, np.ndarray]:
     """Seeded inputs of the epoch sweep over n validators at mainnet
     constants: the columns (numpy [n] uint64, bool `slashed`, uint8
     `prev_flags`) and the [9] uint64 scalars. Besides ordinary rows they
@@ -414,7 +432,12 @@ def epoch_sweep_inputs(rng: np.random.Generator, n: int, in_leak: bool) -> tuple
     validators), exited ones, slashed ones with withdrawable_epoch ahead of
     the previous epoch and behind it, balances below their penalties, and
     effective_balance * score in [2^63, 2^64) as far as the host guard
-    (state_processing/altair.py `_device_sweep_applicable`) admits."""
+    (state_processing/altair.py `_device_sweep_applicable`) admits.
+
+    `max_eb_eth=2048` gives Electra's range: 5% of the rows (compounding
+    validators) take effective balances of 33 to 2048 ETH, and the edge
+    rows of large products sit at 2048 ETH with scores just under the
+    guard, which the largest effective balance now sets."""
     inc = 10**9
     bias, recovery, quotient = 4, 16, 2**24
     cur = 300_001
@@ -444,21 +467,28 @@ def epoch_sweep_inputs(rng: np.random.Generator, n: int, in_leak: bool) -> tuple
     some = rng.random(n) < 0.01
     scores[some] = rng.integers(1, 1000, int(some.sum())).astype(np.uint64)
     bal = (eb.astype(np.int64) + rng.normal(2e7, 1e8, n).astype(np.int64)).clip(0).astype(np.uint64)
+    if max_eb_eth > 32:
+        comp = rng.random(n) < 0.05
+        eb[comp] = rng.integers(33, max_eb_eth + 1, int(comp.sum())).astype(np.uint64) * np.uint64(inc)
+        bal[comp] = eb[comp] + rng.integers(0, 2 * inc, int(comp.sum())).astype(np.uint64)
 
     k = max(64, n // 256)
     edge = rng.permutation(n)[: 2 * k]
     big, poor = edge[:k], edge[k:]
     # effective_balance * score >= 2^63 for an active, non-slashed
     # validator that missed its target, up to the guard's limit
-    eb[big] = np.uint64(32 * inc)
+    top = max_eb_eth * inc
+    eb[big] = np.uint64(top)
     act[big] = 0
     ext[big] = far
     wd[big] = far
     slashed[big] = False
     flags[big] = rng.choice(np.array([0, 1, 4, 5], np.uint8), k)
-    lo = -(-(1 << 63) // (32 * inc)) + recovery
-    hi = (1 << 64) // (32 * inc) - bias
+    lo = -(-(1 << 63) // top) + recovery
+    hi = (1 << 64) // top - bias
     scores[big] = rng.integers(lo, hi + 1, k, dtype=np.uint64)
+    if max_eb_eth > 32:
+        scores[big[0]] = hi  # the guard's edge itself
     # penalties above the balance
     act[poor] = 0
     ext[poor] = far
@@ -683,6 +713,8 @@ def bls_keys(rng: np.random.Generator, count: int):
     inversion for all)."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, R, batch_to_affine, g1_gen_mul
 
+    if count == 0:
+        return [], [], []
     sks = [s % R or 1 for s in bls_scalars(rng, count, 255)]
     affs = batch_to_affine(FQ, [g1_gen_mul(sk) for sk in sks])
     return sks, affs, [_g1_affine_bytes(x, y) for x, y in affs]
@@ -957,10 +989,24 @@ def _validator_roots(validators) -> np.ndarray:
     return level
 
 
+def _u64_container_roots(values, names) -> np.ndarray:
+    """[m, 32] roots of containers whose fields `names` are all uint64."""
+    width = next_pow_of_two(len(names))
+    leaves = np.zeros((len(values), width, 32), dtype=np.uint8)
+    for f, name in enumerate(names):
+        col = np.array([int(getattr(v, name)) for v in values], dtype="<u8")
+        leaves[:, f, :8] = col.view(np.uint8).reshape(-1, 8)
+    level = leaves.reshape(-1, 32)
+    while level.shape[0] > len(values):
+        level = hash_rows_hashlib(level.reshape(-1, 64))
+    return level
+
+
 def host_state_root(state) -> bytes:
     """The state's root folded from its leaves through hashlib only: the
-    registry-scale fields leaf by leaf, the small fields through their own
-    SSZ roots (all below the kernel's size thresholds)."""
+    registry-scale fields and Electra's pending lists leaf by leaf, the
+    small fields through their own SSZ roots (all below the kernel's size
+    thresholds)."""
     chunks = []
     for fname, ftype in state._fields.items():
         value = getattr(state, fname)
@@ -975,6 +1021,9 @@ def host_state_root(state) -> bytes:
             root = _host_fold(_bytes_chunks(b"".join(value)), limit)
         elif fname == "slashings":
             root = _host_fold(_u64_chunks(value), limit)
+        elif fname in ELECTRA_PENDING_LISTS:
+            leaves = _u64_container_roots(list(value), list(ftype.ELEM._fields))
+            root = mix_in_length(_host_fold(leaves, limit), len(value))
         else:
             root = ftype.hash_tree_root_of(value)
         chunks.append(root)
@@ -1627,8 +1676,9 @@ def phase_epoch_sweep_check(seed: int) -> dict:
     """The epoch-sweep kernel (one cooperative launch) and the two-kernel
     sweep it replaced, each equal to the plain version on the card at 2^20
     validators, out of the inactivity leak and in it, with the edge rows of
-    `epoch_sweep_inputs`, and at EPOCH_SWEEP_ABOVE_KEEP (past the
-    shared-memory keep). Times in the same call, in turns (new, replaced,
+    `epoch_sweep_inputs`, on Electra's rows (effective balances up to 2048
+    ETH, scores just under the host guard), and at EPOCH_SWEEP_ABOVE_KEEP
+    (past the shared-memory keep). Times in the same call, in turns (new, replaced,
     replaced, new): back to back (`_time_ms`, 50 reps, the host's launch
     overhead inside) and on the card alone (`_gpu_ms`); the cooperative
     launch at each of EPOCH_SWEEP_SHAPES; the plain version's; the
@@ -1712,6 +1762,32 @@ def phase_epoch_sweep_check(seed: int) -> dict:
         }
         times[leak] = (cases[f"in_leak={int(leak)}"]["ms"], plain_ms)
         del args
+
+    # Electra's range: compounding rows up to 2048 ETH, the edge rows'
+    # products at 2048 ETH with scores just under the host guard
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(seed + 8), n, False, max_eb_eth=2048)
+    args = k7.sweep_tensors(cols, scalars, dev)
+    want = k7.sweep_results(k7.epoch_sweep_plain(*args))
+    electra_err = _sweep_err(k7.sweep_results(k7.epoch_sweep(*args)), want)
+    electra_replaced_err = _sweep_err(k7.sweep_results(k7.epoch_sweep_two_pass(*args)), want)
+    if electra_err or electra_replaced_err:
+        raise AssertionError(
+            f"epoch_sweep on Electra rows differs from its plain version: {electra_err}; "
+            f"the replaced sweep: {electra_replaced_err}"
+        )
+    eb_max = int(cols["effective_balance"].max())
+    products = cols["effective_balance"].astype(object) * cols["scores"].astype(object)
+    cases["electra"] = {
+        "max_abs_err": electra_err,
+        "replaced_max_abs_err": electra_replaced_err,
+        "gpu_ms": _gpu_ms([lambda: k7.epoch_sweep(*args)])[0],
+        "max_effective_balance": eb_max,
+        "max_score": int(cols["scores"].max()),
+        "guard_score_limit": (1 << 64) // eb_max,
+        "rows_above_32_eth": int((cols["effective_balance"] > np.uint64(32 * 10**9)).sum()),
+        "rows_product_ge_2_63": int((products >= 1 << 63).sum()),
+    }
+    del args
 
     # past the shared-memory keep: the tiles' tails re-read from device memory
     big = EPOCH_SWEEP_ABOVE_KEEP
@@ -2221,8 +2297,11 @@ def epoch_prestate(state, E, spec, seed: int) -> dict:
     }
 
 
-def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: list[bytes]) -> dict:
-    """One full mainnet Deneb block for the first slot after `pre`'s epoch
+def transition_block(
+    pre, types, E, spec, sk_of: dict, seed: int, commitments: list[bytes], fork: str = "deneb", operations=None
+) -> dict:
+    """One full block of `fork` (Deneb, or Electra with Electra's
+    withdrawals) for the first slot after `pre`'s epoch
     boundary, built with the port's accessors: the proposer from
     get_beacon_proposer_index, its RANDAO reveal, one Attestation per
     committee of the two previous slots (get_beacon_committee; ~98% of
@@ -2233,7 +2312,12 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
     get seeded keys, written into `pre`'s registry and the pubkey cache.
     The block's state_root is the post-state's, from a run without
     signature checks; also returns a copy of the block with one
-    attestation signed over another message (re-signed by the proposer)."""
+    attestation signed over another message (re-signed by the proposer).
+
+    `operations` (`ElectraOperations`) adds the block operations phase 6
+    bypasses: it picks their validators on `pre` (their signers get keys
+    with the attesters'), builds them against the post-slot state, and
+    names the altered copies it makes (each re-signed by the proposer)."""
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.state_processing import (
         BlockSignatureStrategy,
@@ -2255,7 +2339,7 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
     from lighthouse_tpu_torch.types.chain_spec import Domain, compute_signing_root
 
     rng = np.random.default_rng(seed + 13)
-    T = types.types_for_fork("deneb")
+    T = types.types_for_fork(fork)
     S = E.SLOTS_PER_EPOCH
     slot = int(pre.slot) + 1
     epoch = slot // S
@@ -2271,9 +2355,10 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
     per_slot_processing(probe, spec, E)
     proposer = get_beacon_proposer_index(probe, E)
     del probe
+    extra = operations.choose(pre, proposer) if operations else []
 
     attesters = np.unique(np.concatenate([c[b] for (_, _, c), b in zip(committees, bits)]))
-    new = [i for i in np.union1d(attesters, [proposer]).tolist() if i not in sk_of]
+    new = [i for i in np.union1d(attesters, [proposer, *extra]).tolist() if i not in sk_of]
     t0 = time.perf_counter()
     sks, affs, pks = bls_keys(rng, len(new))
     keygen_s = time.perf_counter() - t0
@@ -2316,7 +2401,13 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
         compute_signing_root(epoch.to_bytes(8, "little").ljust(32, b"\x00"), get_domain(mid, Domain.RANDAO, epoch, spec, E)),
     )
     header = mid.latest_execution_payload_header
-    withdrawals = get_expected_withdrawals(mid, E)
+    if fork == "electra":
+        from lighthouse_tpu_torch.state_processing.electra import get_expected_withdrawals_electra
+
+        withdrawals = get_expected_withdrawals_electra(mid, spec, E)[0]
+    else:
+        withdrawals = get_expected_withdrawals(mid, E)
+    ops = operations.build(mid, sk_of) if operations else {"body": {}, "payload": {}, "altered": {}}
     payload = T.ExecutionPayload(
         parent_hash=header.block_hash,
         fee_recipient=rng.bytes(20),
@@ -2326,7 +2417,7 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
         prev_randao=get_randao_mix(mid, epoch, E),
         block_number=int(header.block_number) + 1,
         gas_limit=int(header.gas_limit),
-        gas_used=int(rng.integers(0, int(header.gas_limit))),
+        gas_used=int(rng.integers(0, max(int(header.gas_limit), 1))),
         timestamp=compute_timestamp_at_slot(mid, spec, E),
         extra_data=rng.bytes(16),
         base_fee_per_gas=int(header.base_fee_per_gas),
@@ -2335,6 +2426,7 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
         withdrawals=withdrawals,
         blob_gas_used=len(commitments) * BLOB_GAS_PER_BLOB,
         excess_blob_gas=0,
+        **ops["payload"],
     )
     block = T.BeaconBlock(
         slot=slot,
@@ -2349,6 +2441,7 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
             sync_aggregate=types.SyncAggregate(sync_committee_bits=sync_bits, sync_committee_signature=sync_sig),
             execution_payload=payload,
             blob_kzg_commitments=commitments,
+            **ops["body"],
         ),
     )
     post = mid.copy()
@@ -2367,9 +2460,15 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
     bad = T.BeaconBlock.deserialize(block.serialize())
     other = attestation(*committees[5], bits[5], head=rng.bytes(32))
     bad.body.attestations[5].signature = other.signature
+    altered = {}
+    for name, alter in ops["altered"].items():
+        copy = T.BeaconBlock.deserialize(block.serialize())
+        alter(copy.body)
+        altered[name] = signed(copy).serialize()
     return {
         "signed": good.serialize(),
         "tampered": signed(bad).serialize(),
+        "altered": altered,
         "mid": mid,
         "post_root": bytes(block.state_root),
         "attestations": len(atts),
@@ -2381,6 +2480,95 @@ def transition_block(pre, types, E, spec, sk_of: dict, seed: int, commitments: l
         "keygen_s": keygen_s,
         "production_s": time.perf_counter() - t0,
     }
+
+
+def _import_rep(pre, signed, spec, E) -> tuple[dict, object]:
+    """One block import across the boundary from a copy() of `pre`, as a
+    node runs it: per_slot_processing, per_block_processing of `signed`
+    under VERIFY_BULK with the signature cache emptied, hash_tree_root();
+    each step timed with a host clock that ends in a card sync. Returns the
+    rep's record and the post-state."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_processing import (
+        BlockSignatureStrategy,
+        per_block_processing,
+        per_slot_processing,
+    )
+
+    s = pre.copy()
+    bls._SIG_CACHE.clear()
+    spans0, rebuilds0, k7_0 = _span_sums(), _column_rebuilds(), k7.COUNTS["launches"]
+    t0 = time.perf_counter()
+    per_slot_processing(s, spec, E)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # the state root is timed apart below and checked against the
+    # block's state_root after the reps
+    per_block_processing(s, signed, spec, E, BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    root = s.hash_tree_root()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    spans = {k: v - spans0[k] for k, v in _span_sums().items()}
+    sig_s = spans["signature_set_assembly"] + spans["signature_batch_verify"]
+    record = {
+        "total_s": t3 - t0,
+        "per_slot_s": t1 - t0,
+        "epoch_transition_s": spans["epoch_transition"],
+        "block_s": t2 - t1,
+        "block_signatures_s": sig_s,
+        "block_rest_s": (t2 - t1) - sig_s,
+        "state_root_s": t3 - t2,
+        "spans_s": spans,
+        "epoch_sweep_launches": k7.COUNTS["launches"] - k7_0,
+        "registry_columns_rebuilds": _column_rebuilds() - rebuilds0,
+        "root": root.hex(),
+    }
+    return record, s
+
+
+def _sweep_equals_numpy(pre, spec, E, fork) -> None:
+    """The epoch-sweep kernel's balances and scores against the port's
+    numpy sweep, on copies of `pre` after justification; raises if they
+    differ or the kernel was not launched."""
+    from lighthouse_tpu_torch.state_processing import altair
+    from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+
+    a = pre.copy()
+    cols = registry_columns_for(a)
+    cols.refresh(a)
+    arr = altair.EpochArrays(a, E, columns=cols)
+    altair.process_justification_and_finalization_altair(a, E, arr)
+    b = a.copy()
+    launches = k7.COUNTS["launches"]
+    altair._device_rewards_and_inactivity(a, spec, E, fork, arr)
+    if k7.COUNTS["launches"] != launches + 1:
+        raise AssertionError("(a) the sweep did not launch the kernel")
+    colsb = registry_columns_for(b)
+    colsb.refresh(b)
+    arrb = altair.EpochArrays(b, E, columns=colsb)
+    altair.process_inactivity_updates(b, spec, E, arrb)
+    altair.process_rewards_and_penalties_altair(b, spec, E, fork, arrb)
+    for field in ("balances", "inactivity_scores"):
+        if getattr(a, field).load_array().tobytes() != getattr(b, field).load_array().tobytes():
+            raise AssertionError(f"(a) kernel {field} differ from the numpy sweep")
+
+
+def _refused(mid, signed, spec, E) -> bool:
+    """Whether per_block_processing of `signed` on a copy of the post-slot
+    state `mid` fails its bulk signature verification."""
+    from lighthouse_tpu_torch.state_processing import (
+        BlockProcessingError,
+        BlockSignatureStrategy,
+        per_block_processing,
+    )
+
+    try:
+        per_block_processing(mid.copy(), signed, spec, E, BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False)
+    except BlockProcessingError as e:
+        return "bulk signature verification failed" in str(e)
+    return False
 
 
 def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitments: list[bytes]) -> tuple[dict, bytes]:
@@ -2398,7 +2586,6 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
 
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.state_processing import (
-        BlockProcessingError,
         BlockSignatureStrategy,
         altair,
         per_block_processing,
@@ -2427,40 +2614,8 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
     k7.reset_counts()
     reps = []
     for rep in range(TRANSITION_REPS):
-        s = pre.copy()
-        signed = T.SignedBeaconBlock.deserialize(blk["signed"])
-        bls._SIG_CACHE.clear()
-        spans0, rebuilds0, k7_0 = _span_sums(), _column_rebuilds(), k7.COUNTS["launches"]
-        t0 = time.perf_counter()
-        per_slot_processing(s, spec, E)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        # the state root is timed apart below and checked against the
-        # block's state_root after the reps
-        per_block_processing(s, signed, spec, E, BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        root = s.hash_tree_root()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        spans = {k: v - spans0[k] for k, v in _span_sums().items()}
-        sig_s = spans["signature_set_assembly"] + spans["signature_batch_verify"]
-        reps.append(
-            {
-                "total_s": t3 - t0,
-                "per_slot_s": t1 - t0,
-                "epoch_transition_s": spans["epoch_transition"],
-                "block_s": t2 - t1,
-                "block_signatures_s": sig_s,
-                "block_rest_s": (t2 - t1) - sig_s,
-                "state_root_s": t3 - t2,
-                "spans_s": spans,
-                "epoch_sweep_launches": k7.COUNTS["launches"] - k7_0,
-                "registry_columns_rebuilds": _column_rebuilds() - rebuilds0,
-                "root": root.hex(),
-            }
-        )
-        post = s
+        record, post = _import_rep(pre, T.SignedBeaconBlock.deserialize(blk["signed"]), spec, E)
+        reps.append(record)
     counts = {"epoch_sweep": k7.COUNTS["launches"], "sha256_rows": k_sha256.COUNTS["launches"], **bls_counts()}
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in counts.items() if v <= 0]
@@ -2473,26 +2628,8 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
     if len({r["root"] for r in reps}) != 1 or reps[0]["root"] != blk["post_root"].hex():
         raise AssertionError("post-block roots differ between reps or from the block's state_root")
 
-    # (a) the kernel's sweep against the port's numpy sweep, on copies of
-    # the same pre-state after justification
-    a = pre.copy()
-    cols = registry_columns_for(a)
-    cols.refresh(a)
-    arr = altair.EpochArrays(a, E, columns=cols)
-    altair.process_justification_and_finalization_altair(a, E, arr)
-    b = a.copy()
-    launches = k7.COUNTS["launches"]
-    altair._device_rewards_and_inactivity(a, spec, E, ForkName.DENEB, arr)
-    if k7.COUNTS["launches"] != launches + 1:
-        raise AssertionError("(a) the sweep did not launch the kernel")
-    colsb = registry_columns_for(b)
-    colsb.refresh(b)
-    arrb = altair.EpochArrays(b, E, columns=colsb)
-    altair.process_inactivity_updates(b, spec, E, arrb)
-    altair.process_rewards_and_penalties_altair(b, spec, E, ForkName.DENEB, arrb)
-    for field in ("balances", "inactivity_scores"):
-        if getattr(a, field).load_array().tobytes() != getattr(b, field).load_array().tobytes():
-            raise AssertionError(f"(a) kernel {field} differ from the numpy sweep")
+    # (a) the kernel's sweep against the port's numpy sweep
+    _sweep_equals_numpy(pre, spec, E, ForkName.DENEB)
 
     # (b) the post-block root against the host-lane fold
     t0 = time.perf_counter()
@@ -2501,15 +2638,7 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
     oracle_s = time.perf_counter() - t0
 
     # (d) one attestation signed over another message: refused
-    refused = False
-    try:
-        per_block_processing(
-            blk["mid"].copy(), T.SignedBeaconBlock.deserialize(blk["tampered"]), spec, E,
-            BlockSignatureStrategy.VERIFY_BULK, verify_block_root=False,
-        )
-    except BlockProcessingError as e:
-        refused = "bulk signature verification failed" in str(e)
-    if not refused:
+    if not _refused(blk["mid"], T.SignedBeaconBlock.deserialize(blk["tampered"]), spec, E):
         raise AssertionError("(d) the block with a wrong attestation signature was accepted")
 
     # the cold root of the pre-state with a fresh hash cache, with and
@@ -2547,7 +2676,7 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
         "fork": "deneb",
         "validators": len(pre.validators),
         "prestate": prestate,
-        "block": {k: v for k, v in blk.items() if k not in ("signed", "tampered", "mid", "post_root")},
+        "block": {k: v for k, v in blk.items() if k not in ("signed", "tampered", "altered", "mid", "post_root")},
         "reps": reps,
         "total_median_s": med,
         "epoch_transition_median_s": statistics.median(r["epoch_transition_s"] for r in reps),
@@ -2572,6 +2701,517 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
     }
     emit(out)
     return out, blk["signed"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: Electra block import across an epoch boundary
+# ---------------------------------------------------------------------------
+
+ELECTRA_REPS = 2
+# What phase 9 adds to phase 6's pre-state and block (mainnet preset); the
+# CPU tests pass smaller counts for a minimal-preset registry.
+ELECTRA_SIZES = {
+    "compounding": 0.05,  # share of the registry given 0x02 credentials
+    "pending_deposits": 256,
+    "pending_partials": 64,
+    "matured_partials": 8,
+    "consolidations": 16,
+    "withdrawable_consolidations": 8,
+    "ejected": 4,
+    "proposer_slashings": 1,
+    "attester_slashings": 1,
+    "attester_slashing_signers": 4,
+    "exits": 16,
+    "bls_changes": 16,
+    "deposits": 4,
+    "receipts": 16,
+    "full_exit_requests": 8,
+    "partial_requests": 8,
+}
+ELECTRA_PENDING_LISTS = ("pending_balance_deposits", "pending_partial_withdrawals", "pending_consolidations")
+
+
+def electra_prestate(state, types, E, spec, seed: int, sizes: dict = ELECTRA_SIZES) -> dict:
+    """Make the Electra `state` (tree-states, at the last slot of an epoch)
+    the pre-state of phase 9, in place, from `seed`: a `compounding` share
+    of the registry, drawn from the active, unslashed, not exiting
+    validators above the ejection balance, gets 0x02 credentials and
+    effective balances spread between 32 and 2048 ETH (balances up to 1 ETH
+    above); the
+    pending-deposit queue gets `pending_deposits` top-ups;
+    `pending_partials` partial withdrawals of compounding validators are
+    queued, the first `matured_partials` withdrawable at the next epoch;
+    `consolidations` pending consolidations from exited validators (a
+    registry with too few gets some exited) into compounding ones, the
+    first `withdrawable_consolidations` of them withdrawable, the rest not
+    yet; `ejected` more validators at the ejection balance; and
+    the eth1 deposit tree (seeded leaves up to eth1_deposit_index, then
+    `deposits` signed deposits of new keys) becomes the state's eth1_data.
+    Returns the deposits (with their proofs), the compounding validators,
+    those with queued partial withdrawals, the indices the block's
+    operations must leave alone, and the counts."""
+    from lighthouse_tpu_torch.state_processing.accessors import invalidate_caches
+    from lighthouse_tpu_torch.state_processing.genesis import DepositTree
+    from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+    from lighthouse_tpu_torch.state_processing.signature_sets import deposit_signature_message
+
+    rng = np.random.default_rng(seed + 41)
+    S = E.SLOTS_PER_EPOCH
+    epoch = int(state.slot) // S
+    if (int(state.slot) + 1) % S:
+        raise AssertionError("electra_prestate: the state is not at the last slot of an epoch")
+    gwei = 10**9
+    cols = registry_columns_for(state)
+    cols.refresh(state)
+    vs = state.validators
+    n = len(vs)
+    eb = np.array(cols.effective_balance, dtype=np.uint64)
+    far = np.uint64(FAR_FUTURE_EPOCH)
+    active = cols.active_mask(epoch) & cols.active_mask(epoch + 1)
+    pool = np.nonzero(
+        active & ~np.asarray(cols.slashed) & (cols.exit_epoch == far) & (eb > np.uint64(spec.ejection_balance))
+    )[0]
+    pick = rng.permutation(pool)
+    k = max(1, int(sizes["compounding"] * n))
+    comp, rest = np.sort(pick[:k]), pick[k:]
+    ejected, rest = np.sort(rest[: sizes["ejected"]]), rest[sizes["ejected"] :]
+
+    addresses = rng.bytes(20 * k)
+    vs.set_fields_bulk(
+        comp.tolist(),
+        "withdrawal_credentials",
+        [b"\x02" + bytes(11) + addresses[20 * j : 20 * j + 20] for j in range(k)],
+    )
+    comp_eb = rng.integers(32, 2049, k).astype(np.uint64) * np.uint64(gwei)
+    vs.set_fields_bulk(comp.tolist(), "effective_balance", comp_eb.tolist())
+    vs.set_fields_bulk(ejected.tolist(), "effective_balance", [spec.ejection_balance] * int(ejected.size))
+    balances = np.array(state.balances.load_array(), dtype=np.uint64)
+    balances[comp] = comp_eb + rng.integers(1, gwei, k).astype(np.uint64)
+    state.balances.store_array(balances)
+
+    topped = rng.choice(rest, sizes["pending_deposits"], replace=False)
+    state.pending_balance_deposits = list(state.pending_balance_deposits) + [
+        types.PendingBalanceDeposit(index=int(i), amount=int(a))
+        for i, a in zip(topped, rng.integers(1, 32, topped.size) * gwei)
+    ]
+    partial = rng.choice(comp, sizes["pending_partials"], replace=False)
+    m = sizes["matured_partials"]
+    when = np.concatenate(
+        [epoch + 1 - rng.integers(0, 4, m), epoch + 1 + rng.integers(1, 300, partial.size - m)]
+    )
+    order = np.argsort(when, kind="stable")
+    state.pending_partial_withdrawals = [
+        types.PendingPartialWithdrawal(index=int(partial[j]), amount=int(rng.integers(1, gwei)), withdrawable_epoch=int(when[j]))
+        for j in order
+    ]
+    exited = np.nonzero(~np.asarray(cols.slashed) & (cols.exit_epoch <= np.uint64(epoch)))[0]
+    need = sizes["consolidations"]
+    if exited.size < need:
+        # a young registry: exit some (this reshuffles the epoch's committees)
+        extra, rest = rest[: need - exited.size], rest[need - exited.size :]
+        vs.set_fields_bulk(extra.tolist(), "exit_epoch", [epoch - 1] * int(extra.size))
+        invalidate_caches(state)
+        exited = np.concatenate([exited, extra])
+    w = sizes["withdrawable_consolidations"]
+    sources = rng.choice(exited, need, replace=False)
+    vs.set_fields_bulk(sources[:w].tolist(), "withdrawable_epoch", [epoch] * w)
+    vs.set_fields_bulk(sources[w:].tolist(), "withdrawable_epoch", [epoch + 100] * (need - w))
+    targets = rng.choice(np.setdiff1d(comp, partial), need, replace=False)
+    state.pending_consolidations = [
+        types.PendingConsolidation(source_index=int(a), target_index=int(b)) for a, b in zip(sources, targets)
+    ]
+
+    # the eth1 deposit tree: seeded leaves for the deposits already made,
+    # then the block's bridge deposits of new keys
+    sks, affs, pks = bls_keys(rng, sizes["deposits"])
+    datas = []
+    for pk in pks:
+        data = types.DepositData(
+            pubkey=pk,
+            withdrawal_credentials=b"\x01" + bytes(11) + rng.bytes(20),
+            amount=32 * gwei,
+            signature=b"\x00" * 96,
+        )
+        data.signature = bls_sign(sks[len(datas)], deposit_signature_message(data, spec, E))
+        datas.append(data)
+    t0 = time.perf_counter()
+    tree = DepositTree()
+    start = int(state.eth1_deposit_index)
+    leaves = rng.bytes(32 * start)
+    tree.leaves = [leaves[32 * i : 32 * i + 32] for i in range(start)]
+    for d in datas:
+        tree.push(d.hash_tree_root())
+    state.eth1_data = types.Eth1Data(deposit_root=tree.root(), deposit_count=len(tree.leaves), block_hash=rng.bytes(32))
+    deposits = [types.Deposit(proof=tree.proof(start + j), data=d) for j, d in enumerate(datas)]
+    tree_s = time.perf_counter() - t0
+
+    cols.refresh(state)
+    busy = np.unique(np.concatenate([ejected, sources, targets]))
+    return {
+        "deposits": deposits,
+        "busy": busy,
+        "compounding": comp,
+        "partials": np.unique(partial),
+        "counts": {
+            "validators": n,
+            "compounding": int(k),
+            "effective_balance_max": int(comp_eb.max()),
+            "pending_balance_deposits": len(state.pending_balance_deposits),
+            "pending_partial_withdrawals": len(state.pending_partial_withdrawals),
+            "matured_partials": m,
+            "pending_consolidations": len(state.pending_consolidations),
+            "withdrawable_consolidations": w,
+            "at_ejection_balance": int(
+                (
+                    active
+                    & (np.asarray(cols.effective_balance) <= np.uint64(spec.ejection_balance))
+                    & ~np.asarray(cols.slashed)
+                ).sum()
+            ),
+            "eth1_deposits": len(tree.leaves),
+            "deposit_tree_s": tree_s,
+        },
+    }
+
+
+class ElectraOperations:
+    """The block operations phase 6 bypasses, for `transition_block`:
+    proposer and attester slashings, voluntary exits, BLS-to-execution
+    changes, bridge deposits (from `electra_prestate`), and in the payload
+    deposit receipts and withdrawal requests (full exits of 0x01
+    validators, partial ones of compounding validators). `choose` picks
+    disjoint validators on the pre-state, away from `prestate["busy"]` and
+    the proposer, writes the credentials the changes and requests need,
+    and names the validators whose keys must sign; `build` makes and signs
+    the operations against the post-slot state. The two altered copies:
+    an exit and a BLS change, each signed over another message."""
+
+    def __init__(self, types, E, spec, seed: int, prestate: dict, sizes: dict = ELECTRA_SIZES):
+        self.types, self.E, self.spec, self.sizes, self.prestate = types, E, spec, sizes, prestate
+        self.rng = np.random.default_rng(seed + 43)
+
+    def choose(self, pre, proposer: int) -> list[int]:
+        import hashlib
+
+        from lighthouse_tpu_torch.crypto import bls
+        from lighthouse_tpu_torch.state_processing import signature_sets as ss
+        from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+
+        sz, rng, spec = self.sizes, self.rng, self.spec
+        nxt = int(pre.slot) // self.E.SLOTS_PER_EPOCH + 1
+        cols = registry_columns_for(pre)
+        cols.refresh(pre)
+        far = np.uint64(FAR_FUTURE_EPOCH)
+        eb = np.asarray(cols.effective_balance)
+        ok = (
+            cols.active_mask(nxt)
+            & ~np.asarray(cols.slashed)
+            & (cols.exit_epoch == far)
+            & (cols.activation_epoch + np.uint64(spec.shard_committee_period) <= np.uint64(nxt))
+            & (eb > np.uint64(spec.ejection_balance))
+        )
+        ok[self.prestate["busy"]] = False
+        ok[proposer] = False
+        comp = np.zeros(len(ok), bool)
+        comp[self.prestate["compounding"]] = True
+        comp[self.prestate["partials"]] = False
+        plain = rng.permutation(np.nonzero(ok & ~comp)[0])
+        counts = [
+            sz["exits"],
+            sz["proposer_slashings"],
+            sz["attester_slashings"] * sz["attester_slashing_signers"],
+            sz["bls_changes"],
+            sz["full_exit_requests"],
+        ]
+        cuts = np.cumsum([0, *counts])
+        self.exits, self.proposers, signers, self.changes, self.full = (
+            np.sort(plain[a:b]) for a, b in zip(cuts[:-1], cuts[1:])
+        )
+        self.slashers = np.sort(signers).reshape(sz["attester_slashings"], sz["attester_slashing_signers"])
+        self.partial = np.sort(rng.choice(np.nonzero(ok & comp)[0], sz["partial_requests"], replace=False))
+
+        # the changes' withdrawal keys, and BLS credentials that name them
+        self.w_sks, affs, self.w_pks = bls_keys(rng, self.changes.size)
+        for (x, y), pk in zip(affs, self.w_pks):
+            ss._PUBKEY_CACHE.setdefault(pk, bls.PublicKey(pk, (x, y, 1)))
+        pre.validators.set_fields_bulk(
+            self.changes.tolist(),
+            "withdrawal_credentials",
+            [b"\x00" + hashlib.sha256(pk).digest()[1:] for pk in self.w_pks],
+        )
+        self.addresses = [rng.bytes(20) for _ in self.full]
+        pre.validators.set_fields_bulk(
+            self.full.tolist(), "withdrawal_credentials", [b"\x01" + bytes(11) + a for a in self.addresses]
+        )
+        return np.concatenate([self.exits, self.proposers, self.slashers.ravel()]).tolist()
+
+    def build(self, mid, sk_of: dict) -> dict:
+        from lighthouse_tpu_torch.state_processing import signature_sets as ss
+        from lighthouse_tpu_torch.state_processing.accessors import get_domain
+        from lighthouse_tpu_torch.state_processing.capella import bls_to_execution_change_signature_set
+        from lighthouse_tpu_torch.types.chain_spec import Domain, compute_signing_root
+
+        t, E, spec, rng = self.types, self.E, self.spec, self.rng
+        S = E.SLOTS_PER_EPOCH
+        slot = int(mid.slot)
+        epoch = slot // S
+        gwei = 10**9
+
+        def header_pair(p: int):
+            pair = []
+            for body_root in (rng.bytes(32), rng.bytes(32)):
+                h = t.BeaconBlockHeader(
+                    slot=slot - 1, proposer_index=p, parent_root=rng.bytes(32), state_root=rng.bytes(32), body_root=body_root
+                )
+                domain = get_domain(mid, Domain.BEACON_PROPOSER, (slot - 1) // S, spec, E)
+                pair.append(
+                    t.SignedBeaconBlockHeader(message=h, signature=bls_sign(sk_of[p], compute_signing_root(h.hash_tree_root(), domain)))
+                )
+            return t.ProposerSlashing(signed_header_1=pair[0], signed_header_2=pair[1])
+
+        def double_vote(members):
+            source = mid.previous_justified_checkpoint
+            target = t.Checkpoint(epoch=epoch - 1, root=rng.bytes(32))
+            domain = get_domain(mid, Domain.BEACON_ATTESTER, epoch - 1, spec, E)
+            sk = sum(sk_of[int(i)] for i in members)
+            out = []
+            for _ in range(2):
+                data = t.AttestationData(slot=slot - 1, index=0, beacon_block_root=rng.bytes(32), source=source, target=target)
+                out.append(
+                    t.IndexedAttestation(
+                        attesting_indices=[int(i) for i in members],
+                        data=data,
+                        signature=bls_sign(sk, compute_signing_root(data.hash_tree_root(), domain)),
+                    )
+                )
+            return t.AttesterSlashing(attestation_1=out[0], attestation_2=out[1])
+
+        exit_domain = spec.compute_domain_from_parts(Domain.VOLUNTARY_EXIT, spec.capella_fork_version, mid.genesis_validators_root)
+
+        def signed_exit(i: int, epoch_signed: int):
+            message = compute_signing_root(t.VoluntaryExit(epoch=epoch_signed, validator_index=i).hash_tree_root(), exit_domain)
+            return t.SignedVoluntaryExit(message=t.VoluntaryExit(epoch=epoch, validator_index=i), signature=bls_sign(sk_of[i], message))
+
+        def change(j: int, address: bytes):
+            c = t.BLSToExecutionChange(validator_index=int(self.changes[j]), from_bls_pubkey=self.w_pks[j], to_execution_address=self.change_to[j])
+            unsigned = t.SignedBLSToExecutionChange(
+                message=t.BLSToExecutionChange(validator_index=c.validator_index, from_bls_pubkey=c.from_bls_pubkey, to_execution_address=address),
+                signature=b"\xc0" + bytes(95),
+            )
+            message = bls_to_execution_change_signature_set(mid, unsigned, spec, E).message
+            return t.SignedBLSToExecutionChange(message=c, signature=bls_sign(self.w_sks[j], message))
+
+        self.change_to = [rng.bytes(20) for _ in range(self.changes.size)]
+        proposer_slashings = [header_pair(int(p)) for p in self.proposers]
+        attester_slashings = [double_vote(members) for members in self.slashers]
+        exits = [signed_exit(int(i), epoch) for i in self.exits]
+        changes = [change(j, self.change_to[j]) for j in range(self.changes.size)]
+
+        sks, _, pks = bls_keys(rng, self.sizes["receipts"])
+        receipts = []
+        for j, (sk, pk) in enumerate(zip(sks, pks)):
+            data = t.DepositData(
+                pubkey=pk, withdrawal_credentials=bytes([1 + j % 2]) + bytes(11) + rng.bytes(20), amount=32 * gwei, signature=b"\x00" * 96
+            )
+            receipts.append(
+                t.DepositReceipt(
+                    pubkey=pk,
+                    withdrawal_credentials=data.withdrawal_credentials,
+                    amount=data.amount,
+                    signature=bls_sign(sk, ss.deposit_signature_message(data, spec, E)),
+                    index=int(mid.eth1_data.deposit_count) + j,
+                )
+            )
+        requests = [
+            t.ExecutionLayerWithdrawalRequest(
+                source_address=a, validator_pubkey=mid.validators[int(i)].pubkey, amount=spec.full_exit_request_amount
+            )
+            for i, a in zip(self.full, self.addresses)
+        ] + [
+            t.ExecutionLayerWithdrawalRequest(
+                source_address=bytes(mid.validators[int(i)].withdrawal_credentials)[12:],
+                validator_pubkey=mid.validators[int(i)].pubkey,
+                amount=int(rng.integers(1, gwei)),
+            )
+            for i in self.partial
+        ]
+        # the altered copies: each signed over another message
+        bad_exit = signed_exit(int(self.exits[0]), epoch - 1)
+        bad_change = change(0, rng.bytes(20))
+
+        def alter_exit(body):
+            body.voluntary_exits[0].signature = bad_exit.signature
+
+        def alter_change(body):
+            body.bls_to_execution_changes[0].signature = bad_change.signature
+
+        return {
+            "body": {
+                "proposer_slashings": proposer_slashings,
+                "attester_slashings": attester_slashings,
+                "deposits": self.prestate["deposits"],
+                "voluntary_exits": exits,
+                "bls_to_execution_changes": changes,
+            },
+            "payload": {"deposit_receipts": receipts, "withdrawal_requests": requests},
+            "altered": {"exit_signed_over_another_message": alter_exit, "bls_change_signed_over_another_message": alter_change},
+        }
+
+    def counts(self) -> dict:
+        return {
+            "proposer_slashings": int(self.proposers.size),
+            "attester_slashings": int(self.slashers.shape[0]),
+            "attester_slashing_signers": int(self.slashers.size),
+            "voluntary_exits": int(self.exits.size),
+            "bls_to_execution_changes": int(self.changes.size),
+            "deposits": len(self.prestate["deposits"]),
+            "deposit_receipts": self.sizes["receipts"],
+            "withdrawal_requests": int(self.full.size + self.partial.size),
+        }
+
+
+def _block_sets(block) -> int:
+    """The signature sets BlockSignatureVerifier makes of `block`."""
+    body = block.body
+    return (
+        2  # proposal, RANDAO
+        + 2 * len(body.proposer_slashings)
+        + 2 * len(body.attester_slashings)
+        + len(body.attestations)
+        + len(body.voluntary_exits)
+        + int(any(body.sync_aggregate.sync_committee_bits))
+        + len(body.bls_to_execution_changes)
+    )
+
+
+def phase_electra_main_path(state, types, E, sk_of: dict, seed: int, commitments: list[bytes]) -> dict:
+    """Electra block import across an epoch boundary on a copy of phase
+    6's 1M-validator pre-state: the copy upgraded with the port's
+    upgrade_to_electra (timed once), given phase 9's Electra pre-state
+    (`electra_prestate`: compounding validators up to 2048 ETH, the
+    pending queues, validators at the ejection balance, the eth1 deposit
+    tree), then ELECTRA_REPS times from a copy() of it: per_slot_processing
+    over the boundary (the Electra epoch, its sweep on the epoch-sweep
+    kernel), per_block_processing of a full, really signed Electra block
+    (phase 6's attestations, sync aggregate, withdrawals led by the matured
+    partial withdrawals and six blob commitments, plus `ElectraOperations`)
+    under VERIFY_BULK on the `cuda` BLS backend, and hash_tree_root().
+    Checks: the kernel launched once a rep; (a) its balances and scores on
+    the Electra pre-state byte-equal to the port's numpy sweep; the
+    resident columns not rebuilt after the first rep; (b) the post-block
+    root equal to the host-lane fold (the pending lists folded leaf by
+    leaf); (c) the block accepted; (d) the copies with an exit and with a
+    BLS change signed over another message refused; the BLS kernels
+    launched, with the number of sets verified."""
+    import statistics
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_processing import altair
+    from lighthouse_tpu_torch.state_processing.electra import upgrade_to_electra
+    from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
+    from lighthouse_tpu_torch.types.chain_spec import ForkName, mainnet_spec
+
+    T = types.types_for_fork("electra")
+    bls.set_backend("cuda")
+    t0 = time.perf_counter()
+    pre = state.copy()
+    # the fork at the pre-state's own epoch
+    spec = replace(mainnet_spec(), electra_fork_epoch=int(pre.slot) // E.SLOTS_PER_EPOCH)
+    t1 = time.perf_counter()
+    upgrade_to_electra(pre, spec, E)
+    upgrade_s = time.perf_counter() - t1
+    prestate = electra_prestate(pre, types, E, spec, seed)
+    arrays = altair.EpochArrays(pre, E, columns=registry_columns_for(pre))
+    if not altair._device_sweep_applicable(pre, arrays, spec, E):
+        raise AssertionError("the host guard keeps the Electra pre-state off the epoch-sweep kernel")
+    ops = ElectraOperations(types, E, spec, seed, prestate)
+    blk = transition_block(pre, types, E, spec, sk_of, seed, commitments, fork="electra", operations=ops)
+    signed = T.SignedBeaconBlock.deserialize(blk["signed"])
+    setup_s = time.perf_counter() - t0
+
+    # the main path: counts at zero just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k_sha256.reset_counts()
+    reset_bls_counts()
+    k7.reset_counts()
+    reps = []
+    for _ in range(ELECTRA_REPS):
+        record, post = _import_rep(pre, T.SignedBeaconBlock.deserialize(blk["signed"]), spec, E)
+        reps.append(record)
+    counts = {"epoch_sweep": k7.COUNTS["launches"], "sha256_rows": k_sha256.COUNTS["launches"], **bls_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"the Electra main path launched no {missing}")
+    if any(r["epoch_sweep_launches"] != 1 for r in reps):
+        raise AssertionError("an Electra epoch transition ran the epoch-sweep kernel other than once")
+    if any(r["registry_columns_rebuilds"] for r in reps[1:]):
+        raise AssertionError("resident registry columns rebuilt after the first epoch")
+    if len({r["root"] for r in reps}) != 1 or reps[0]["root"] != blk["post_root"].hex():
+        raise AssertionError("Electra post-block roots differ between reps or from the block's state_root")
+    if type(post).__name__ != "BeaconStateElectra":
+        raise AssertionError(f"the post-state is a {type(post).__name__}")
+
+    # (a) the kernel's sweep on the Electra pre-state against the numpy sweep
+    _sweep_equals_numpy(pre, spec, E, ForkName.ELECTRA)
+    # (b) the post-block root against the host-lane fold
+    t0 = time.perf_counter()
+    if host_state_root(post) != bytes.fromhex(reps[0]["root"]):
+        raise AssertionError("(b) the Electra post-block root differs from the host-lane fold")
+    oracle_s = time.perf_counter() - t0
+    # (d) the altered copies: refused
+    for name, data in blk["altered"].items():
+        if not _refused(blk["mid"], T.SignedBeaconBlock.deserialize(data), spec, E):
+            raise AssertionError(f"(d) the block with an {name.replace('_', ' ')} was accepted")
+
+    epoch_stages = {
+        k: statistics.median(r["spans_s"][k] for r in reps) for k in TRANSITION_SPANS if k.startswith("epoch_stage_")
+    }
+    out = {
+        "phase": "electra_main_path",
+        "preset": E.NAME,
+        "fork": "electra",
+        "validators": len(pre.validators),
+        "upgrade_s": upgrade_s,
+        "setup_s": setup_s,
+        "prestate": prestate["counts"],
+        "operations": ops.counts(),
+        "block": {k: v for k, v in blk.items() if k not in ("signed", "tampered", "altered", "mid", "post_root")},
+        "post": {
+            "validators": len(post.validators),
+            **{f: len(getattr(post, f)) for f in ELECTRA_PENDING_LISTS},
+            "earliest_exit_epoch": int(post.earliest_exit_epoch),
+            "deposit_receipts_start_index": int(post.deposit_receipts_start_index),
+        },
+        "signature_sets": _block_sets(signed.message),
+        "reps": reps,
+        "total_median_s": statistics.median(r["total_s"] for r in reps),
+        "per_slot_median_s": statistics.median(r["per_slot_s"] for r in reps),
+        "epoch_transition_median_s": statistics.median(r["epoch_transition_s"] for r in reps),
+        "block_median_s": statistics.median(r["block_s"] for r in reps),
+        "block_signatures_median_s": statistics.median(r["block_signatures_s"] for r in reps),
+        "block_rest_median_s": statistics.median(r["block_rest_s"] for r in reps),
+        "state_root_median_s": statistics.median(r["state_root_s"] for r in reps),
+        "epoch_stages_median_s": epoch_stages,
+        "launches": counts,
+        "epoch_sweep_launches": counts["epoch_sweep"],
+        "registry_columns_rebuilds": [r["registry_columns_rebuilds"] for r in reps],
+        "max_memory_allocated_bytes": peak,
+        "host_lane_oracle_s": oracle_s,
+        "checks": {
+            "epoch-sweep kernel once a rep": True,
+            "(a) sweep equal numpy": True,
+            "columns not rebuilt after the first epoch": True,
+            "(b) root equal host lanes": True,
+            "(c) block accepted": True,
+            "(d) exit signed over another message refused": True,
+            "(d) BLS change signed over another message refused": True,
+        },
+    }
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3540,6 +4180,8 @@ def main(argv=None) -> int:
     # a fresh engine on the same setup: phase 7 builds its table in its run
     blob_path = phase_blob_main_path(Kzg(kzg.setup), blobs, signed, types, MainnetEthSpec, args.seed)
     sharded = phase_sharded_main_path(state, kzg, args.seed)
+    # phase 6's pre-state (with its keys) upgraded to Electra, on a copy
+    electra = phase_electra_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -3550,7 +4192,9 @@ def main(argv=None) -> int:
                     "route": "cuda",
                     "source": "lighthouse_tpu_torch/csrc/sha256.cu",
                     "replaces": "lighthouse_tpu/ops/sha256.py:104",
+                    # phase 4's state roots; phase 9's Electra block import apart
                     "launches": main_path["sha256_launches"],
+                    "launches_electra": electra["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -3566,8 +4210,9 @@ def main(argv=None) -> int:
                     "source": f"lighthouse_tpu_torch/csrc/{src}",
                     "replaces": replaces,
                     # K4's multi-pairing also runs the KZG checks of phase 7,
-                    # K2's g1_to_affine K9's table there
+                    # K2's g1_to_affine K9's table there; phase 9's apart
                     "launches": bls_path["launches"][name] + blob_path["launches"].get(name, 0),
+                    "launches_electra": electra["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -3625,15 +4270,19 @@ def main(argv=None) -> int:
                     "route": "cuda",
                     "source": "lighthouse_tpu_torch/csrc/epoch_sweep.cu",
                     "replaces": "lighthouse_tpu/ops/epoch_sweep.py:39",
+                    # phase 6's epochs; phase 9's Electra epochs apart
                     "launches": transition["epoch_sweep_launches"],
+                    "launches_electra": electra["epoch_sweep_launches"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
                     "bound_ms": sweep_check["bound_ms"],
                     "bound_by": sweep_check["bound_by"],
                     "library_ms": None,
-                    # the card alone; the replaced two-kernel sweep in the same call
+                    # the card alone; the replaced two-kernel sweep in the same call;
+                    # Electra's rows (2048-ETH effective balances) on the card alone
                     **{key: sweep_check[key] for key in ("gpu_ms", "replaced_ms", "replaced_gpu_ms")},
+                    "electra_rows_gpu_ms": sweep_check["cases"]["electra"]["gpu_ms"],
                 }
             ]
             + [

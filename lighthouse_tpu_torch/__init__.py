@@ -14,7 +14,10 @@ backend, on the BLS12-381 kernels (``ops/bls381*.py``,
 ``csrc/bls381_*``; slice 2); the state transition,
 ``state_processing.per_slot_processing`` / ``per_block_processing``, with
 the Altair epoch sweep on its kernel (``ops/epoch_sweep.py``,
-``csrc/epoch_sweep.cu``; slice 3). The device policy is in ``device.py``:
+``csrc/epoch_sweep.cu``; slice 3), through Electra, with genesis, fork
+choice and the conformance runner (``testing/ef_tests.py``); blob data
+availability and the multi-device step (slices 4 and 5). The device policy
+is in ``device.py``:
 kernels run on ``cuda`` unless the caller asks for the CPU.
 """
 

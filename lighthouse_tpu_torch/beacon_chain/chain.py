@@ -1,8 +1,9 @@
 """Chain-level state helpers (counterpart of lighthouse_tpu/beacon_chain/chain.py).
 
-Only `_make_persistent` is ported so far: it gives a state the
+Only two helpers are ported so far: `_make_persistent` gives a state the
 tree-states representation that block import hashes through the
-dirty-index caches of ssz/cached_tree_hash.py.
+dirty-index caches of ssz/cached_tree_hash.py, and `empty_sync_aggregate`
+is the state harness's empty sync aggregate.
 """
 
 from __future__ import annotations
@@ -31,3 +32,14 @@ def _make_persistent(state):
     v = getattr(state, "validators", None)
     if isinstance(v, list):
         object.__setattr__(state, "validators", PersistentContainerList(v))
+
+
+def empty_sync_aggregate(types, E):
+    """No-participation sync aggregate: all-zero bits + the G2 infinity
+    signature (required by eth_fast_aggregate_verify's empty rule)."""
+    from ..crypto import bls
+
+    return types.SyncAggregate(
+        sync_committee_bits=[False] * E.SYNC_COMMITTEE_SIZE,
+        sync_committee_signature=bls.INFINITY_SIGNATURE,
+    )

@@ -4,10 +4,8 @@ Host-side spec logic; the batch-heavy pieces (signature batches, tree
 hashing, the epoch sweep) dispatch to the port's kernels on the default
 device (lighthouse_tpu_torch/device.py).
 
-The same exports as the JAX package's, except genesis (``genesis.py``,
-whose user is the beacon-chain harness, is not ported yet). Electra state
-processing is not ported yet either: the entry points raise
-NotImplementedError for a state at or after Electra.
+The same exports as the JAX package's, genesis included; every fork up
+to Electra (``electra.py``) runs through the same entry points.
 """
 
 from .accessors import (
@@ -20,6 +18,12 @@ from .accessors import (
     get_current_epoch,
     get_previous_epoch,
     get_total_active_balance,
+)
+from .genesis import (
+    DepositTree,
+    initialize_beacon_state_from_eth1,
+    interop_genesis_state,
+    is_valid_genesis_state,
 )
 from .per_block import (
     BlockProcessingError,
@@ -42,6 +46,10 @@ __all__ = [
     "get_current_epoch",
     "get_previous_epoch",
     "get_total_active_balance",
+    "DepositTree",
+    "initialize_beacon_state_from_eth1",
+    "interop_genesis_state",
+    "is_valid_genesis_state",
     "BlockProcessingError",
     "BlockSignatureStrategy",
     "BlockSignatureVerifier",

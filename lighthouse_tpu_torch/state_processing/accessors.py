@@ -1,8 +1,6 @@
 """Beacon-state accessors, predicates and mutators (spec helpers).
 
-Counterpart of lighthouse_tpu/state_processing/accessors.py, copied; the
-Electra exit churn raises `NotImplementedError` until Electra state
-processing is ported (`electra_not_ported`).
+Counterpart of lighthouse_tpu/state_processing/accessors.py, copied.
 
 The committee machinery mirrors the reference's per-epoch `CommitteeCache`
 (consensus/types/src/beacon_state/committee_cache.rs): one whole-list shuffle
@@ -20,24 +18,6 @@ from ..utils.safe_arith import safe_add, safe_div, safe_mul, saturating_sub
 from .shuffle import compute_shuffled_index
 
 MAX_RANDOM_BYTE = 255
-
-
-def electra_not_ported(what: str):
-    """Raise for Electra state processing, which the port does not have yet
-    (lighthouse_tpu/state_processing/electra.py is a later slice)."""
-    raise NotImplementedError(
-        f"{what}: Electra state processing is not ported to "
-        "lighthouse_tpu_torch yet (electra.py belongs to a later slice)"
-    )
-
-
-def require_pre_electra(state, E, what: str) -> None:
-    """The entry points' guard: a state at or after Electra raises."""
-    from ..types.chain_spec import ForkName
-    from ..types.containers import build_types
-
-    if build_types(E).fork_of_state(state) >= ForkName.ELECTRA:
-        electra_not_ported(what)
 
 
 def int_sqrt(n: int) -> int:
@@ -511,7 +491,10 @@ def mutable_validator(state, index: int):
 def initiate_validator_exit(state, index: int, spec: ChainSpec, E):
     if hasattr(state, "earliest_exit_epoch"):
         # Electra: weight-denominated exit churn (EIP-7251)
-        electra_not_ported("initiate_validator_exit")
+        from .electra import initiate_validator_exit_electra
+
+        initiate_validator_exit_electra(state, index, spec, E)
+        return
     if state.validators[index].exit_epoch != FAR_FUTURE_EPOCH:
         return
     # All queue reads happen BEFORE the mutate() handle is taken: the

@@ -38,7 +38,6 @@ from ..utils.safe_arith import (
 from .accessors import (
     compute_epoch_at_slot,
     decrease_balance,
-    electra_not_ported,
     get_active_validator_indices,
     get_beacon_committee,
     get_block_root,
@@ -1085,8 +1084,19 @@ def process_epoch_altair(state, spec: ChainSpec, E, fork: ForkName):
     process_eth1_data_reset(state, E)
     with span("epoch_stage_effective_balances"):
         if fork >= ForkName.ELECTRA:
-            electra_not_ported("process_epoch")
-        process_effective_balance_updates(state, E, arrays=arrays)
+            from .electra import (
+                process_effective_balance_updates_electra,
+                process_pending_balance_deposits,
+                process_pending_consolidations,
+            )
+
+            process_pending_balance_deposits(state, spec, E)
+            process_pending_consolidations(state, spec, E)
+            process_effective_balance_updates_electra(
+                state, spec, E, arrays=arrays
+            )
+        else:
+            process_effective_balance_updates(state, E, arrays=arrays)
     with span("epoch_stage_final_updates"):
         process_slashings_reset(state, E)
         process_randao_mixes_reset(state, E)

@@ -1,8 +1,6 @@
 """Capella: withdrawals sweep + BLS-to-execution credential changes.
 
-Counterpart of lighthouse_tpu/state_processing/capella.py, copied;
-Electra's pending partial withdrawals raise NotImplementedError (electra.py
-is not ported yet).
+Counterpart of lighthouse_tpu/state_processing/capella.py, copied.
 
 Mirrors capella/beacon-chain.md process_withdrawals /
 process_bls_to_execution_change (reference per_block_processing.rs capella
@@ -15,7 +13,6 @@ from ..types.chain_spec import ChainSpec, Domain, compute_signing_root
 from ..utils.safe_arith import safe_sub
 from .accessors import (
     decrease_balance,
-    electra_not_ported,
     get_current_epoch,
     mutable_validator,
 )
@@ -89,7 +86,13 @@ def process_withdrawals(state, execution_payload, E, spec: ChainSpec | None = No
     partial_count = 0
     if hasattr(state, "pending_partial_withdrawals"):
         # Electra: matured pending partials lead the sweep and are popped
-        electra_not_ported("process_withdrawals")
+        from .electra import get_expected_withdrawals_electra
+
+        if spec is None:
+            raise ValueError(
+                "process_withdrawals on an Electra state requires spec="
+            )
+        expected, partial_count = get_expected_withdrawals_electra(state, spec, E)
     else:
         expected = get_expected_withdrawals(state, E)
     actual = list(execution_payload.withdrawals)

@@ -1,8 +1,6 @@
 """Block processing: the spec `per_block_processing` with signature strategies.
 
-Counterpart of lighthouse_tpu/state_processing/per_block.py, copied; a
-state at or after Electra raises NotImplementedError (electra.py is not
-ported yet).
+Counterpart of lighthouse_tpu/state_processing/per_block.py, copied.
 
 Mirrors consensus/state_processing/src/per_block_processing.rs:100-196 and its
 `BlockSignatureStrategy` (:54-63): NoVerification / VerifyIndividual /
@@ -25,7 +23,6 @@ from .accessors import (
     committee_cache_at,
     compute_epoch_at_slot,
     decrease_balance,
-    electra_not_ported,
     get_attesting_indices,
     get_beacon_committee,
     get_beacon_proposer_index,
@@ -39,7 +36,6 @@ from .accessors import (
     initiate_validator_exit,
     is_slashable_attestation_data,
     is_slashable_validator,
-    require_pre_electra,
     slash_validator,
 )
 
@@ -259,7 +255,6 @@ def per_block_processing(
     (`milestones("signature_verified")`, `milestones("payload_verified")`)
     the chain uses to stamp its BlockTimesCache at the exact pipeline
     points — the latency-attribution seam, not a behavior hook."""
-    require_pre_electra(state, E, "per_block_processing")
     try:
         _per_block_processing_inner(
             state, signed_block, spec, E, strategy, ctxt, block_root,
@@ -513,7 +508,19 @@ def process_operations(
                 state, change, spec, E, verify_signatures
             )
     if fork >= ForkName.ELECTRA:
-        electra_not_ported("execution-layer requests")
+        from .bellatrix import is_execution_enabled
+        from .electra import (
+            process_deposit_receipt,
+            process_execution_layer_withdrawal_request,
+        )
+
+        if is_execution_enabled(state, body):
+            # spec operation order: deposit receipts, then withdrawal
+            # requests — a same-block request may target a receipt's validator
+            for receipt in body.execution_payload.deposit_receipts:
+                process_deposit_receipt(state, receipt, spec, E)
+            for req in body.execution_payload.withdrawal_requests:
+                process_execution_layer_withdrawal_request(state, req, spec, E)
 
 
 def process_proposer_slashing(state, ps, spec, E, verify_signatures: bool):
@@ -785,5 +792,8 @@ def process_voluntary_exit(state, signed_exit, spec, E, verify_signatures: bool)
         raise BlockProcessingError("exit: bad signature")
     if hasattr(state, "pending_partial_withdrawals"):
         # Electra: only exit when no pending partial withdrawals remain
-        electra_not_ported("process_voluntary_exit")
+        from .electra import get_pending_balance_to_withdraw
+
+        if get_pending_balance_to_withdraw(state, exit_msg.validator_index) != 0:
+            raise BlockProcessingError("exit: pending partial withdrawals")
     initiate_validator_exit(state, exit_msg.validator_index, spec, E)

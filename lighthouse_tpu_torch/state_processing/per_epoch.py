@@ -1,8 +1,6 @@
 """Epoch processing (phase0 base path).
 
-Counterpart of lighthouse_tpu/state_processing/per_epoch.py, copied; a
-state at or after Electra raises NotImplementedError (electra.py is not
-ported yet).
+Counterpart of lighthouse_tpu/state_processing/per_epoch.py, copied.
 
 Mirrors consensus/state_processing/src/per_epoch_processing.rs:44-52 (phase0
 multi-pass with ValidatorStatuses; Altair+ gets the fused single-pass later).
@@ -43,7 +41,6 @@ from .accessors import (
     is_active_validator,
     is_eligible_for_activation,
     is_eligible_for_activation_queue,
-    require_pre_electra,
 )
 
 BASE_REWARDS_PER_EPOCH = 4
@@ -58,7 +55,6 @@ def process_epoch(state, spec: ChainSpec, E):
 
     from ..utils.tracing import span
 
-    require_pre_electra(state, E, "process_epoch")
     fork = build_types(E).fork_of_state(state)
     # `epoch_transition` is a root-span name in the trace taxonomy
     # (OBSERVABILITY.md): standalone transitions land in the collector as

@@ -1,8 +1,6 @@
 """Slot processing: root caching + epoch boundary dispatch.
 
-Counterpart of lighthouse_tpu/state_processing/per_slot.py, copied; a
-state at or after Electra, or an upgrade to it, raises NotImplementedError
-(electra.py is not ported yet).
+Counterpart of lighthouse_tpu/state_processing/per_slot.py, copied.
 
 Mirrors state_processing's `per_slot_processing` (state root caching into the
 historical vectors, epoch transition at boundaries, fork upgrades at
@@ -12,7 +10,6 @@ scheduled epochs).
 from __future__ import annotations
 
 from ..types.chain_spec import ChainSpec
-from .accessors import require_pre_electra
 from .per_epoch import process_epoch
 
 
@@ -31,7 +28,6 @@ def per_slot_processing(state, spec: ChainSpec, E, state_root: bytes | None = No
     """Advance `state` by one slot in place. `state_root` (if known) skips
     re-hashing the state (the reference threads this optimization through,
     state_processing/src/per_slot_processing.rs)."""
-    require_pre_electra(state, E, "per_slot_processing")
     process_slot(state, E, state_root)
     if (state.slot + 1) % E.SLOTS_PER_EPOCH == 0:
         process_epoch(state, spec, E)

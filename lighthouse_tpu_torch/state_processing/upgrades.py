@@ -1,8 +1,6 @@
 """Fork upgrade functions (consensus/state_processing/src/upgrade/*.rs).
 
-Counterpart of lighthouse_tpu/state_processing/upgrades.py, copied; the
-upgrade to Electra raises NotImplementedError (electra.py is not ported
-yet).
+Counterpart of lighthouse_tpu/state_processing/upgrades.py, copied.
 
 Each `upgrade_to_*` mutates the state IN PLACE by swapping its container
 class to the next fork's variant and installing the new fields — the Python
@@ -14,7 +12,7 @@ analog of the reference's superstruct variant map, chosen so
 from __future__ import annotations
 
 from ..types.chain_spec import ChainSpec, ForkName
-from .accessors import electra_not_ported, get_current_epoch, invalidate_caches
+from .accessors import get_current_epoch, invalidate_caches
 from .altair import (
     add_flag,
     get_attestation_participation_flag_indices,
@@ -174,7 +172,9 @@ def upgrade_to_deneb(state, spec: ChainSpec, E):
 
 
 def _upgrade_to_electra(state, spec: ChainSpec, E):
-    electra_not_ported("upgrade_to_electra")
+    from .electra import upgrade_to_electra
+
+    upgrade_to_electra(state, spec, E)
 
 
 UPGRADES = {

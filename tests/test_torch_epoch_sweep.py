@@ -44,6 +44,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PE = port_types.preset_from_name("minimal")
 N = 4096
 CASES = [(seed, leak) for seed in (3, 4) for leak in (False, True)]
+# Electra's range: effective balances up to 2048 ETH, scores just under the guard
+ELECTRA_CASES = [(seed, leak) for seed in (5, 6) for leak in (False, True)]
 FORKS = dict(altair_fork_epoch=0, bellatrix_fork_epoch=0, capella_fork_epoch=0, deneb_fork_epoch=0)
 FAR = 2**64 - 1
 
@@ -72,8 +74,8 @@ def cpu_device():
     set_default_device(prev)
 
 
-def _inputs(seed: int, leak: bool):
-    return epoch_sweep_inputs(np.random.default_rng(seed), N, leak)
+def _inputs(seed: int, leak: bool, max_eb_eth: int = 32):
+    return epoch_sweep_inputs(np.random.default_rng(seed), N, leak, max_eb_eth)
 
 
 @pytest.fixture(scope="module")
@@ -81,8 +83,8 @@ def jax_sweeps(tmp_path_factory):
     """The JAX `epoch_sweep` on every case, in one subprocess."""
     tmp = tmp_path_factory.mktemp("epoch_sweep")
     arrays = {}
-    for seed, leak in CASES:
-        cols, scalars = _inputs(seed, leak)
+    for (seed, leak), max_eb in [(c, 32) for c in CASES] + [(c, 2048) for c in ELECTRA_CASES]:
+        cols, scalars = _inputs(seed, leak, max_eb)
         for name, arr in cols.items():
             arrays[f"s{seed}l{int(leak)}__{name}"] = arr
         arrays[f"s{seed}l{int(leak)}__scalars"] = scalars
@@ -116,6 +118,26 @@ def test_plain_sweep_bit_exact_with_jax(jax_sweeps, seed, leak):
     # the sweep did something on every kind of row
     assert (new_balances < cols["balances"]).any() and (new_balances > cols["balances"]).any() != leak
     assert (new_balances == 0).any()
+
+
+@pytest.mark.parametrize("seed,leak", ELECTRA_CASES)
+def test_plain_sweep_bit_exact_with_jax_on_electra_rows(jax_sweeps, seed, leak):
+    """Electra's columns: compounding rows at 33 to 2048 ETH, the edge rows'
+    products of 2^63 and more at 2048 ETH with scores up to the host
+    guard's limit (which the largest effective balance sets)."""
+    cols, scalars = _inputs(seed, leak, 2048)
+    eb, scores = cols["effective_balance"], cols["scores"]
+    assert int(eb.max()) == 2048 * 10**9
+    assert (eb > np.uint64(32 * 10**9)).sum() > N // 50
+    products = [int(e) * int(s) for e, s in zip(eb, scores)]
+    assert sum(p >= 1 << 63 for p in products) >= 64
+    assert int(scores.max()) == (1 << 64) // int(eb.max()) - 4  # the guard's edge
+
+    new_balances, new_scores = k7.epoch_sweep_arrays(cols, scalars)
+    case = f"s{seed}l{int(leak)}"
+    assert np.array_equal(new_balances, jax_sweeps[case + "__balances"])
+    assert np.array_equal(new_scores, jax_sweeps[case + "__scores"])
+    assert (new_balances < cols["balances"]).any() and (new_balances == 0).any()
 
 
 def test_udiv_matches_u64_floor_division():

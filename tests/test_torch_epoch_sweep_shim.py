@@ -89,6 +89,21 @@ def test_cooperative_sweep_matches_plain(lib, leak, n, max_grid, threads, keep):
     _assert_equal_to_plain(_cooperative(lib, args, grid, threads, tile, kept), args)
 
 
+@pytest.mark.parametrize("leak", [False, True])
+@pytest.mark.parametrize("n, max_grid, threads, keep", [(300, 4, 64, None), (1000, 8, 64, 77)])
+def test_cooperative_sweep_matches_plain_on_electra_rows(lib, leak, n, max_grid, threads, keep):
+    """Electra's rows (`epoch_sweep_inputs(..., max_eb_eth=2048)`):
+    compounding validators at 33 to 2048 ETH in the kept effective
+    balances and the re-read past the keep, and products of 2^63 and more
+    at 2048 ETH with scores up to the host guard's limit."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(n + 2048 + leak), max(n, 128), leak, max_eb_eth=2048)
+    cols = {k: v[:n] for k, v in cols.items()}
+    assert int(cols["effective_balance"].max()) == 2048 * 10**9
+    args = k7.sweep_tensors(cols, scalars, "cpu")
+    grid, tile, kept = k7.sweep_plan(n, max_grid, threads, 1 << 20, keep)
+    _assert_equal_to_plain(_cooperative(lib, args, grid, threads, tile, kept), args)
+
+
 def _divisor_inputs(d: int) -> tuple:
     """64 active validators whose divisions meet the reciprocals' edges at
     divisor d: the increment and the inactivity denominator are d, the

@@ -389,11 +389,35 @@ def test_epoch_sweep_matches_plain(cuda, n, leak):
     assert grid * tile >= n and (keep < tile) == (n == 3_500_000)
 
 
+@pytest.mark.parametrize("n", [4096, 1 << 20])
+@pytest.mark.parametrize("leak", [False, True])
+def test_epoch_sweep_matches_plain_on_electra_rows(cuda, n, leak):
+    """Electra's range on the card: compounding rows at 33 to 2048 ETH
+    (`eb / increment` up to 2048 in the kept effective balance and the
+    reciprocals), the edge rows' products of 2^63 and more at 2048 ETH with
+    scores up to the host guard's limit; bit-exact with the plain version
+    and with the host's numpy result of the wrapper."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(n + 2048 + leak), n, leak, max_eb_eth=2048)
+    assert int(cols["scores"].max()) == (1 << 64) // int(cols["effective_balance"].max()) - 4
+    args = K7.sweep_tensors(cols, scalars, cuda)
+    before = K7.COUNTS["launches"]
+    got = K7.epoch_sweep(*args)
+    torch.cuda.synchronize()
+    assert K7.COUNTS["launches"] == before + 1
+    for g, w in zip(got, K7.epoch_sweep_plain(*args)):
+        assert torch.equal(g, w)
+    host = K7.epoch_sweep_arrays(cols, scalars)
+    for h, g in zip(host, got):
+        assert np.array_equal(h, g.cpu().numpy().view(np.uint64))
+
+
 @pytest.mark.parametrize("keep", [0, 1, 100])
-def test_epoch_sweep_re_read_past_a_forced_keep_matches_plain(cuda, keep):
+@pytest.mark.parametrize("max_eb_eth", [32, 2048])
+def test_epoch_sweep_re_read_past_a_forced_keep_matches_plain(cuda, keep, max_eb_eth):
     """The cooperative kernel keeping only `keep` validators a tile (the
-    rest read again in its second phase) at 65,537 validators."""
-    cols, scalars = epoch_sweep_inputs(np.random.default_rng(keep), 65_537, False)
+    rest read again in its second phase) at 65,537 validators, on 32-ETH
+    rows and on Electra's rows up to 2048 ETH."""
+    cols, scalars = epoch_sweep_inputs(np.random.default_rng(keep), 65_537, False, max_eb_eth)
     args = K7.sweep_tensors(cols, scalars, cuda)
     plan = K7._shaped_plan(args[0].device, 65_537, K7.THREADS, K7.BLOCKS_PER_SM, keep)
     assert plan[3] == keep < plan[2]

@@ -45,6 +45,24 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_card_paths_load_no_yaml():
+    """The card's machine may have no `yaml`: what chip_smoke.py, the card
+    tests and the package's entry points import must not load it (only
+    types/network_config.py and testing/ef_tests.py, CPU-side, do)."""
+    code = (
+        "import sys\n"
+        "import chip_smoke, lighthouse_tpu_torch\n"
+        "import lighthouse_tpu_torch.types, lighthouse_tpu_torch.state_processing\n"
+        "import lighthouse_tpu_torch.fork_choice, lighthouse_tpu_torch.testing.harness\n"
+        "import lighthouse_tpu_torch.testing.snappy\n"
+        "sys.exit(1 if 'yaml' in sys.modules else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    gpu_tests = ROOT / "tests" / "test_torch_gpu.py"
+    assert "yaml" not in _imports(gpu_tests) and "ef_tests" not in gpu_tests.read_text()
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

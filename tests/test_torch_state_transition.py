@@ -48,6 +48,9 @@ from lighthouse_tpu_torch.state_processing import (
     per_slot_processing,
     process_epoch,
 )
+from lighthouse_tpu_torch.state_processing.epoch_reference import (
+    process_epoch_reference as port_process_epoch_reference,
+)
 from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
 from lighthouse_tpu_torch.types.chain_spec import mainnet_spec as port_mainnet_spec
 from lighthouse_tpu_torch.types.chain_spec import minimal_spec as port_minimal_spec
@@ -408,13 +411,19 @@ def test_committees_and_proposers_equal_jax(preset, n):
 # Registry-columns epochs against the JAX per-validator reference
 # ---------------------------------------------------------------------------
 
-_FORKS_OF = {JF.PHASE0: {}, JF.ALTAIR: dict(altair_fork_epoch=0)}
+_FORKS_OF = {
+    JF.PHASE0: {},
+    JF.ALTAIR: dict(altair_fork_epoch=0),
+    JF.ELECTRA: dict(FORKS, electra_fork_epoch=0),
+}
 
 
 def _base_state(fork, n: int, seed: int):
     """A boundary-ready state with a randomized registry: pending, exited,
     slashed validators; participation (altair) or pending attestations
-    (phase0); scores, balances and slashings."""
+    (phase0); scores, balances and slashings. Electra adds compounding
+    validators at effective balances up to 2048 ETH with scores near the
+    host guard of the epoch-sweep kernel, and the three pending queues."""
     jax_bls.set_backend("fake_crypto")
     rng = random.Random(seed)
     spec = replace(jax_minimal_spec(), **_FORKS_OF[fork])
@@ -448,7 +457,37 @@ def _base_state(fork, n: int, seed: int):
     state.finalized_checkpoint.epoch = 1
     if fork == JF.PHASE0:
         _phase0_attestations(state, rng)
+    if fork >= JF.ELECTRA:
+        _electra_queues(state, rng)
     return state, spec
+
+
+def _electra_queues(state, rng):
+    """Compounding validators with 33 to 2048 ETH, one with a score just
+    under the guard (effective_balance * (score + bias) < 2^64), and the
+    pending deposit, partial-withdrawal and consolidation queues."""
+    t = jax_types.build_types(JE)
+    n = len(state.validators)
+    comp = rng.sample(range(n), n // 10)
+    for i in comp:
+        v = state.validators[i]
+        v.withdrawal_credentials = b"\x02" + bytes(11) + i.to_bytes(20, "little")
+        v.effective_balance = rng.randrange(33, 2049) * 10**9
+        state.balances[i] = v.effective_balance + rng.randrange(-2 * 10**9, 2 * 10**9)
+    top = max(comp, key=lambda i: state.validators[i].effective_balance)
+    state.inactivity_scores[top] = (1 << 64) // state.validators[top].effective_balance - 4
+    state.pending_balance_deposits = [
+        t.PendingBalanceDeposit(index=rng.randrange(n), amount=rng.randrange(1, 64) * 10**9) for _ in range(12)
+    ]
+    state.pending_partial_withdrawals = [
+        t.PendingPartialWithdrawal(index=i, amount=10**9, withdrawable_epoch=3 + k) for k, i in enumerate(comp[:6])
+    ]
+    sources = [i for i in range(n) if state.validators[i].exit_epoch < 4 and not state.validators[i].slashed][:4]
+    for i in sources[:2]:
+        state.validators[i].withdrawable_epoch = 2
+    state.pending_consolidations = [
+        t.PendingConsolidation(source_index=s, target_index=d) for s, d in zip(sources, comp[6:])
+    ]
 
 
 def _phase0_attestations(state, rng):
@@ -490,53 +529,46 @@ def _churn(pair, rng):
         s.slot = (s.slot // JE.SLOTS_PER_EPOCH + 2) * JE.SLOTS_PER_EPOCH - 1
 
 
-@pytest.mark.parametrize("fork", [JF.PHASE0, JF.ALTAIR])
+@pytest.mark.parametrize("fork", [JF.PHASE0, JF.ALTAIR, JF.ELECTRA])
 @pytest.mark.parametrize("seed", [11, 12])
-def test_resident_epochs_equal_jax_reference(fork, seed):
+def test_resident_epochs_equal_jax_reference(fork, seed, monkeypatch):
     """The port's process_epoch over resident columns equals the JAX
-    package's per-validator `process_epoch_reference`, then again on a
-    copy() after registry churn, while the original stays as it was."""
+    package's per-validator `process_epoch_reference` and the port's own
+    (on a plain-list copy), then again on a copy() after registry churn,
+    while the original stays as it was. From Altair on, the sweep runs
+    through the kernel's plain version (on Electra's columns too) where
+    the host guard admits the state."""
+    swept = []
+    plain = k7.epoch_sweep_plain
+    monkeypatch.setattr(k7, "epoch_sweep_plain", lambda *a: (swept.append(1), plain(*a))[1])
     rng = random.Random(seed + 100)
     js, jspec = _base_state(fork, 520, seed)
     pspec = replace(port_minimal_spec(), **_FORKS_OF[fork])
+
+    def port_reference(state_bytes):
+        ref = state_from_ssz(state_bytes, fork.value, PE)
+        port_process_epoch_reference(ref, pspec, PE)
+        return ref.serialize()
+
     ps = state_from_ssz(js.serialize(), fork.value, PE)
     _make_persistent(ps)
     registry_columns_for(ps).refresh(ps)
 
+    own = port_reference(ps.serialize())
     process_epoch(ps, pspec, PE)
     process_epoch_reference(js, jspec, JE)
-    assert ps.serialize() == js.serialize()
+    assert ps.serialize() == js.serialize() == own
     assert ps.hash_tree_root() == type(js).hash_tree_root_of(js)
 
     kept, kept_root = ps, ps.hash_tree_root()
     ps, js = ps.copy(), js.copy()
     _churn((js, ps), rng)
+    own = port_reference(ps.serialize())
     process_epoch(ps, pspec, PE)
     process_epoch_reference(js, jspec, JE)
-    assert ps.serialize() == js.serialize()
+    assert ps.serialize() == js.serialize() == own
     assert ps.hash_tree_root() == type(js).hash_tree_root_of(js)
     assert kept.hash_tree_root() == kept_root == type(kept).hash_tree_root_of(kept)
-
-
-def test_electra_state_raises_not_implemented():
-    jax_bls.set_backend("fake_crypto")
-    port_bls.set_backend("fake_crypto")
-    jspec = replace(jax_minimal_spec(), **FORKS, electra_fork_epoch=0)
-    pspec = replace(port_minimal_spec(), **FORKS, electra_fork_epoch=0)
-    js = interop_genesis_state(jax_bls.interop_keypairs(8), 1_600_000_000, b"\x42" * 32, jspec, JE)
-    ps = state_from_ssz(js.serialize(), "electra", PE)
-    with pytest.raises(NotImplementedError, match="Electra"):
-        per_slot_processing(ps.copy(), pspec, PE)
-    with pytest.raises(NotImplementedError, match="Electra"):
-        process_epoch(ps.copy(), pspec, PE)
-    block = build_types(PE).types_for_fork("electra").SignedBeaconBlock()
-    with pytest.raises(NotImplementedError, match="Electra"):
-        per_block_processing(ps.copy(), block, pspec, PE, BlockSignatureStrategy.NO_VERIFICATION)
-    # a Deneb state crossing into Electra raises at the upgrade
-    _, deneb_spec = _specs(electra_fork_epoch=1)
-    ds = state_from_ssz(interop_genesis_state(
-        jax_bls.interop_keypairs(8), 1_600_000_000, b"\x42" * 32, _specs()[0], JE
-    ).serialize(), "deneb", PE)
-    ds.slot = PE.SLOTS_PER_EPOCH - 1
-    with pytest.raises(NotImplementedError, match="Electra"):
-        per_slot_processing(ds, deneb_spec, PE)
+    # Electra's second epoch: the score set just under the guard has grown
+    # past it, so the host guard sends that sweep to the numpy path
+    assert len(swept) == {JF.PHASE0: 0, JF.ALTAIR: 2, JF.ELECTRA: 1}[fork]
