@@ -102,7 +102,27 @@ each, any failure ends the run with a non-zero exit code:
    under VERIFY_BULK on the ``cuda`` backend, and ``hash_tree_root()``.
    The sweep must equal the numpy sweep, the root the host-lane fold (the
    pending lists folded leaf by leaf), the block be accepted and the copies
-   with an exit and with a BLS change signed over another message refused.
+   with an exit and with a BLS change signed over another message refused;
+10. chain: block import through the port's ``BeaconChain`` entry points,
+   with the BLS backend following the device (no ``set_backend`` call in
+   the script: ``cuda`` on the card): (a) ``BeaconChainHarness`` on the
+   minimal preset (64 validators) extends the chain 32 slots, each block
+   through ``process_block`` and each slot's 8 attestations through
+   ``process_attestation_batch`` on the card, to justified epoch 3 and
+   finalized 2; a block with one attestation signature swapped for a
+   valid signature over another message is refused with the head
+   unmoved, and a gossip batch of 8 with one such signature has exactly
+   that one refused; (b) a ``BeaconChain`` over an in-memory
+   ``HotColdDB`` anchored on a copy of phase 6's 1M-validator pre-state,
+   with a ``ManualSlotClock`` and a ``Kzg`` on the card: phase 7's six blob
+   sidecars through ``process_blob_sidecars``, then phase 6's block
+   through ``verify_block_for_gossip`` and ``process_block``: the head is
+   the block, its state root phase 6's post-state root; (c) the
+   post-state read back from the store and rooted cold on the card,
+   equal; (d) 64 gossip attestations to the new head accepted in one
+   batch, and of a batch of 8 only the one signed over another message
+   refused. Each step's seconds on a line of its own with the card's
+   name and power limit.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -1876,9 +1896,11 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
     n_pubkeys = sum(len(s.pubkeys) for s in sets)
     chunk = bls.DEFAULT_DEVICE_CHUNK
 
+    # the backend follows the card's device: `cuda`, with no set_backend
+    if bls.backend_setting() is not None or bls.backend_name() != "cuda":
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r}), not the device's cuda")
     # warm the pubkey decompression and limb caches, as a node's validator
     # pubkey cache has them; a new block's signatures are not cached
-    bls.set_backend("cuda")
     if not bls.verify_signature_sets(sets, random.Random(seed)):
         raise AssertionError("(a) the cuda backend rejected the valid block")
 
@@ -1920,11 +1942,9 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
 
     # verdicts (a)-(e), cuda against host
     def both(name, batch, want):
-        bls.set_backend("cuda")
         got_cuda = bls.verify_signature_sets(batch, random.Random(seed))
-        bls.set_backend("host")
         t0 = time.perf_counter()
-        got_host = bls.verify_signature_sets(batch, random.Random(seed))
+        got_host = bls._BACKENDS["host"].verify_signature_sets(batch, random.Random(seed))
         host_s = time.perf_counter() - t0
         if got_cuda is not want or got_host is not want:
             raise AssertionError(f"verdict {name}: cuda {got_cuda}, host {got_host}, expected {want}")
@@ -1942,7 +1962,6 @@ def phase_bls_main_path(state, types, E, seed: int) -> tuple[dict, dict]:
     both("(c) a signature outside G2", replaced(2 + 7, bls.Signature(g2_affine_to_bytes((x, y)))), False)
     both("(d) an infinity signature", replaced(2 + 9, bls.Signature(bls.INFINITY_SIGNATURE)), False)
     both("(e) a gossip batch of 64", blk["gossip"], True)
-    bls.set_backend("cuda")
 
     # stage values against the host oracle, with the same scalars
     rand = random.Random(seed)
@@ -2596,7 +2615,6 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
 
     spec = mainnet_spec()
     T = types.types_for_fork("deneb")
-    bls.set_backend("cuda")
     t0 = time.perf_counter()
     prestate = epoch_prestate(state, E, spec, seed)
     prestate["setup_s"] = time.perf_counter() - t0
@@ -3106,14 +3124,12 @@ def phase_electra_main_path(state, types, E, sk_of: dict, seed: int, commitments
     import statistics
     from dataclasses import replace
 
-    from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.state_processing import altair
     from lighthouse_tpu_torch.state_processing.electra import upgrade_to_electra
     from lighthouse_tpu_torch.state_processing.registry_columns import registry_columns_for
     from lighthouse_tpu_torch.types.chain_spec import ForkName, mainnet_spec
 
     T = types.types_for_fork("electra")
-    bls.set_backend("cuda")
     t0 = time.perf_counter()
     pre = state.copy()
     # the fork at the pre-state's own epoch
@@ -4138,6 +4154,297 @@ def phase_sharded_main_path(state, kzg, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the chain
+# ---------------------------------------------------------------------------
+
+CHAIN_HARNESS_VALIDATORS = 64
+CHAIN_HARNESS_SLOTS = 32
+CHAIN_GOSSIP_ATTESTATIONS = 64
+CHAIN_GOSSIP_TAMPERED_BATCH = 8
+
+
+def chain_counts() -> dict:
+    """Every kernel counter the chain's calls can move, by kernel name."""
+    return (
+        {"sha256_rows": k_sha256.COUNTS["launches"], "epoch_sweep": k7.COUNTS["launches"]}
+        | bls_counts()
+        | kzg_counts()
+        | {k: k_g.COUNTS[k] for k in ("g1_scalar_mul_wide", "g1_scalar_mul_wide64")}
+        | dict(k_ms.COUNTS)
+    )
+
+
+def reset_chain_counts() -> None:
+    k_sha256.reset_counts()
+    k7.reset_counts()
+    reset_bls_counts()
+    reset_kzg_counts()
+    k_ms.reset_counts()
+
+
+def _verdicts(results) -> list:
+    return [type(r).__name__ if isinstance(r, Exception) else None for r in results]
+
+
+def _chain_attestations(state, types, E, spec, sk_of: dict, head_root: bytes, n: int) -> list:
+    """`n` unaggregated attestations at `state`'s slot voting for
+    `head_root` (the epoch's first block), one a validator, from the
+    committee members that have a key in `sk_of`, each signed with it."""
+    from lighthouse_tpu_torch.state_processing.accessors import committee_cache_at, get_domain
+    from lighthouse_tpu_torch.types.chain_spec import Domain, compute_signing_root
+
+    slot = int(state.slot)
+    epoch = slot // E.SLOTS_PER_EPOCH
+    cc = committee_cache_at(state, epoch, E)
+    domain = get_domain(state, Domain.BEACON_ATTESTER, epoch, spec, E)
+    out = []
+    for index in range(cc.committees_per_slot):
+        committee = [int(v) for v in cc.committee(slot, index)]
+        data = types.AttestationData(
+            slot=slot,
+            index=index,
+            beacon_block_root=head_root,
+            source=state.current_justified_checkpoint,
+            target=types.Checkpoint(epoch=epoch, root=head_root),
+        )
+        msg = compute_signing_root(data.hash_tree_root(), domain)
+        for pos, v in enumerate(committee):
+            if v in sk_of:
+                bits = [False] * len(committee)
+                bits[pos] = True
+                out.append(types.Attestation(aggregation_bits=bits, data=data, signature=bls_sign(sk_of[v], msg)))
+                if len(out) == n:
+                    return out
+    raise AssertionError(f"only {len(out)} of {n} attesters at slot {slot} have a key")
+
+
+def phase_chain_main_path(
+    pre, signed_bytes: bytes, post_root: bytes, kzg, blobs: list[bytes], types, E, sk_of: dict, seed: int, smi: str
+) -> dict:
+    """Block import through the port's BeaconChain entry points, with the
+    BLS backend left to follow the device (no set_backend call; `cuda` on
+    the card):
+    (a) the first milestone: BeaconChainHarness on the minimal preset, 64
+        interop validators, extend_chain(32): each block produced, signed
+        and imported by process_block, each slot's 8 attestations through
+        process_attestation_batch; justified epoch 3, finalized 2, head
+        slot 32; a block with one attestation signature swapped for a
+        valid signature over another message refused by process_block
+        with the head unmoved; a gossip batch of 8 with one such
+        signature: exactly one AttestationError, at its index;
+    (b) block import at 1M validators (mainnet preset): a BeaconChain
+        over HotColdDB(MemoryStore()) anchored on a copy of phase 6's
+        pre-state (its filled header the anchor block), a ManualSlotClock
+        and a Kzg on the card over the ceremony setup; phase 7's six blob
+        sidecars through process_blob_sidecars, then phase 6's signed block
+        through verify_block_for_gossip and process_block: the head is the
+        block and its state root phase 6's post-state root;
+    (c) store round trip: store.get_state(post-state root), rooted cold
+        on the card, equal to the root before;
+    (d) a gossip batch of 64 unaggregated attestations to the new head,
+        signed with phase 5/6's keys, all accepted; a batch of 8 more with
+        one signed over another message: only that one refused.
+    Each step's seconds on its own line with the card's name and power
+    limit; the kernels each step launched."""
+    from lighthouse_tpu_torch import default_device
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness, BlockError
+    from lighthouse_tpu_torch.beacon_chain.chain import BeaconChain
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.ssz.merkle_proof import build_blob_sidecars
+    from lighthouse_tpu_torch.state_processing import per_slot_processing
+    from lighthouse_tpu_torch.state_processing.accessors import get_beacon_proposer_index
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    want_backend = "cuda" if default_device().type == "cuda" else "host"
+    if bls.backend_setting() is not None or bls.backend_name() != want_backend:
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r}), not {want_backend!r}")
+    steps, launches = {}, {}
+
+    def step(name, fn):
+        before = chain_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
+        emit({"phase": "chain_step", "step": name, "s": steps[name], "launches": launches[name], "card": smi})
+        return res
+
+    # prepared outside the counted run: the blob sidecars (phase 7's), the
+    # anchor (a copy of phase 6's pre-state)
+    T = types.types_for_fork("deneb")
+    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
+    root = signed.message.hash_tree_root()
+    slot = int(signed.message.slot)
+    sidecars = build_blob_sidecars(signed, blobs, kzg, E)
+    anchor = pre.copy()
+    spec = mainnet_spec()
+
+    # the main path: counts at zero just before, read just after
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_chain_counts()
+
+    # (a) the first milestone on the minimal preset
+    h = step("a_harness_genesis", lambda: BeaconChainHarness(minimal_spec(), MinimalEthSpec, validator_count=CHAIN_HARNESS_VALIDATORS))
+    chain_a = h.chain
+    per_call = {"process_block": [], "process_attestation_batch": []}
+
+    def observed(name, fn):
+        def call(*args, **kwargs):
+            k4 = k_pair.COUNTS["multi_pairing"]
+            res = fn(*args, **kwargs)
+            per_call[name].append((k_pair.COUNTS["multi_pairing"] - k4, res))
+            return res
+
+        return call
+
+    chain_a.process_block = observed("process_block", chain_a.process_block)
+    chain_a.process_attestation_batch = observed("process_attestation_batch", chain_a.process_attestation_batch)
+    step("a_extend_chain", lambda: h.extend_chain(CHAIN_HARNESS_SLOTS))
+    del chain_a.process_block, chain_a.process_attestation_batch
+    milestone = (h.justified_epoch, h.finalized_epoch, int(chain_a.head_state.slot))
+    if milestone != (3, 2, CHAIN_HARNESS_SLOTS):
+        raise AssertionError(f"(a) justified, finalized, head slot {milestone}, not (3, 2, {CHAIN_HARNESS_SLOTS})")
+    blocks_a, batches_a = per_call["process_block"], per_call["process_attestation_batch"]
+    # on the card, each import and each batch verifies with the pairing kernel
+    on_card = want_backend == "cuda"
+    if len(blocks_a) != CHAIN_HARNESS_SLOTS or any(on_card and k4 < 1 for k4, _ in blocks_a):
+        raise AssertionError(f"(a) {len(blocks_a)} block imports, multi-pairings {[k for k, _ in blocks_a]}")
+    if len(batches_a) != CHAIN_HARNESS_SLOTS or any((on_card and k4 < 1) or _verdicts(r) != [None] * 8 for k4, r in batches_a):
+        raise AssertionError(f"(a) attestation batches: {[(k, _verdicts(r)) for k, r in batches_a]}")
+    # a block whose first attestation carries a valid signature over another message
+    head_a = bytes(chain_a.head_root)
+    slot_a = CHAIN_HARNESS_SLOTS + 1
+    h.slot_clock.set_slot(slot_a)
+    proposer_state = chain_a.head_state.copy()
+    per_slot_processing(proposer_state, h.spec, h.E)
+    proposer = get_beacon_proposer_index(proposer_state, h.E)
+    block_a, _ = chain_a.produce_block_on_state(
+        slot_a,
+        h.randao_reveal(proposer, slot_a, proposer_state),
+        sync_aggregate_fn=lambda st: h.make_sync_aggregate(st, slot_a, head_a),
+    )
+    att = block_a.body.attestations[0]
+    other = h.make_attestations(int(att.data.slot), b"\x99" * 32)[int(att.data.index)]
+    block_a.body.attestations[0] = chain_a.types.Attestation(aggregation_bits=att.aggregation_bits, data=att.data, signature=other.signature)
+    tampered_a = h.sign_block(block_a, proposer_state)
+
+    def refused_block():
+        try:
+            chain_a.process_block(tampered_a)
+        except BlockError as e:
+            return str(e)
+        raise AssertionError("(a) the block with a swapped attestation signature was imported")
+
+    refused_a = step("a_tampered_block", refused_block)
+    if bytes(chain_a.head_root) != head_a:
+        raise AssertionError("(a) the head moved on a refused block")
+    atts = h.make_unaggregated_attestations(slot_a, head_a)
+    resigned = h.make_unaggregated_attestations(slot_a, b"\x99" * 32)
+    bad_at = 3
+    atts[bad_at] = chain_a.types.Attestation(
+        aggregation_bits=atts[bad_at].aggregation_bits, data=atts[bad_at].data, signature=resigned[bad_at].signature
+    )
+    verdicts_a = _verdicts(step("a_tampered_batch", lambda: chain_a.process_attestation_batch(atts)))
+    if verdicts_a != [None] * bad_at + ["AttestationError"] + [None] * (len(atts) - bad_at - 1):
+        raise AssertionError(f"(a) the batch with one bad signature gave {verdicts_a}")
+    del h, chain_a
+
+    # (b) phase 6's block through the chain at 1M validators
+    clock = ManualSlotClock(genesis_time=int(anchor.genesis_time), seconds_per_slot=spec.seconds_per_slot)
+    chain = step(
+        "b_chain_init",
+        lambda: BeaconChain(HotColdDB(MemoryStore()), genesis_state=anchor, spec=spec, E=E, slot_clock=clock, kzg=kzg),
+    )
+    if chain.genesis_block_root != bytes(signed.message.parent_root):
+        raise AssertionError("(b) the block's parent is not the anchor's filled header")
+    clock.set_slot(slot)
+    staged = step("b_process_blob_sidecars", lambda: chain.process_blob_sidecars(root, sidecars))
+    if staged.available:
+        raise AssertionError("(b) the blobs were available before their block")
+    gossip = step("b_verify_block_for_gossip", lambda: chain.verify_block_for_gossip(signed))
+    imported = step("b_process_block", lambda: chain.process_block(gossip))
+    if bytes(imported) != root or bytes(chain.head_root) != root:
+        raise AssertionError("(b) the head is not the imported block")
+    head_root_b = step("b_head_state_root", lambda: chain.head_state.hash_tree_root())
+    if bytes(head_root_b) != post_root or bytes(signed.message.state_root) != post_root:
+        raise AssertionError("(b) the head state's root is not phase 6's post-state root")
+    stored_blobs = chain.store.get_blob_sidecars(root)
+    if stored_blobs is None or len(stored_blobs) != len(blobs):
+        raise AssertionError("(b) the block's blob sidecars were not stored with it")
+    da_launches = launches["b_process_blob_sidecars"]
+    if on_card and (da_launches.get("barycentric_eval", 0) < 1 or da_launches.get("multi_pairing", 0) < 1):
+        raise AssertionError(f"(b) the DA gate launched {da_launches}")
+
+    # (c) the store round trip
+    loaded = step("c_store_get_state", lambda: chain.store.get_state(post_root))
+    _make_persistent(loaded)
+    root_c = step("c_cold_root", lambda: loaded.hash_tree_root())
+    if bytes(root_c) != post_root:
+        raise AssertionError("(c) the state read back from the store roots differently")
+    del loaded
+
+    # (d) gossip attestations to the new head
+    atts = _chain_attestations(
+        chain.head_state, types, E, spec, sk_of, root, CHAIN_GOSSIP_ATTESTATIONS + CHAIN_GOSSIP_TAMPERED_BATCH
+    )
+    clean, rest = atts[:CHAIN_GOSSIP_ATTESTATIONS], atts[CHAIN_GOSSIP_ATTESTATIONS:]
+    verdicts_d = _verdicts(step("d_attestation_batch", lambda: chain.process_attestation_batch(clean)))
+    if verdicts_d != [None] * len(clean):
+        raise AssertionError(f"(d) the clean batch gave {verdicts_d}")
+    other_d = _chain_attestations(chain.head_state, types, E, spec, sk_of, b"\x99" * 32, len(atts))[CHAIN_GOSSIP_ATTESTATIONS + bad_at]
+    rest[bad_at] = types.Attestation(aggregation_bits=rest[bad_at].aggregation_bits, data=rest[bad_at].data, signature=other_d.signature)
+    verdicts_d2 = _verdicts(step("d_tampered_batch", lambda: chain.process_attestation_batch(rest)))
+    if verdicts_d2 != [None] * bad_at + ["AttestationError"] + [None] * (len(rest) - bad_at - 1):
+        raise AssertionError(f"(d) the batch with one bad signature gave {verdicts_d2}")
+
+    counts = chain_counts()
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    required = ["sha256_rows", "epoch_sweep", *BLS_KERNELS, "barycentric_eval"]
+    missing = [k for k in required if on_card and counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the chain's calls launched no {missing}")
+    out = {
+        "phase": "chain_main_path",
+        "backend": bls.backend_name(),
+        "backend_set": bls.backend_setting(),
+        "a_minimal": {
+            "validators": CHAIN_HARNESS_VALIDATORS,
+            "slots": CHAIN_HARNESS_SLOTS,
+            "justified_epoch": milestone[0],
+            "finalized_epoch": milestone[1],
+            "head_slot": milestone[2],
+            "multi_pairings_per_block": [k for k, _ in blocks_a],
+            "multi_pairings_per_batch": [k for k, _ in batches_a],
+            "tampered_block": refused_a,
+            "tampered_batch": verdicts_a,
+        },
+        "b_import": {
+            "preset": E.NAME,
+            "validators": len(anchor.validators),
+            "block_slot": slot,
+            "sidecars": len(sidecars),
+            "head_is_block": True,
+            "post_state_root": post_root.hex(),
+        },
+        "c_round_trip_root_equal": True,
+        "d_gossip": {"attestations": len(clean), "tampered_batch": verdicts_d2},
+        "steps_s": steps,
+        "launches_per_step": launches,
+        "launches": counts,
+        "max_memory_allocated_bytes": peak,
+    }
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4182,6 +4489,10 @@ def main(argv=None) -> int:
     sharded = phase_sharded_main_path(state, kzg, args.seed)
     # phase 6's pre-state (with its keys) upgraded to Electra, on a copy
     electra = phase_electra_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
+    # phase 6's pre-state and block through the chain's entry points
+    chain = phase_chain_main_path(
+        state, signed, bytes.fromhex(transition["reps"][0]["root"]), kzg, blobs, types, MainnetEthSpec, sk_of, args.seed, smi
+    )
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -4195,6 +4506,7 @@ def main(argv=None) -> int:
                     # phase 4's state roots; phase 9's Electra block import apart
                     "launches": main_path["sha256_launches"],
                     "launches_electra": electra["launches"]["sha256_rows"],
+                    "launches_chain": chain["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -4213,6 +4525,7 @@ def main(argv=None) -> int:
                     # K2's g1_to_affine K9's table there; phase 9's apart
                     "launches": bls_path["launches"][name] + blob_path["launches"].get(name, 0),
                     "launches_electra": electra["launches"][name],
+                    "launches_chain": chain["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -4273,6 +4586,7 @@ def main(argv=None) -> int:
                     # phase 6's epochs; phase 9's Electra epochs apart
                     "launches": transition["epoch_sweep_launches"],
                     "launches_electra": electra["epoch_sweep_launches"],
+                    "launches_chain": chain["launches"]["epoch_sweep"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
@@ -4292,6 +4606,7 @@ def main(argv=None) -> int:
                     "source": f"lighthouse_tpu_torch/csrc/{src}",
                     "replaces": replaces,
                     "launches": blob_path["launches"][name],
+                    "launches_chain": chain["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -4333,6 +4648,7 @@ def main(argv=None) -> int:
                     "source": src,
                     "replaces": replaces,
                     "launches": launches,
+                    "launches_chain": chain["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -4393,6 +4709,7 @@ def main(argv=None) -> int:
                     "source": "lighthouse_tpu_torch/ops/bls381_sharded.py",
                     "replaces": "lighthouse_tpu/ops/bls381_sharded.py:52",
                     "launches": sum(sharded["b_rlc_sum"]["launches"].values()),
+                    "launches_chain": chain["launches"]["g1_scalar_mul_wide64"],
                     "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
                     "ms": sharded["b_rlc_sum"]["kernels_ms"],
                     "plain_ms": sharded["b_rlc_sum"]["plain_ms"],

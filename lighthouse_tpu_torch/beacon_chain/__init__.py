@@ -1,4 +1,33 @@
-"""Beacon chain orchestration (beacon_node/beacon_chain equivalent).
+"""Beacon chain orchestration (beacon_node/beacon_chain equivalent)."""
 
-Slice 1 holds only the tree-states conversion block import relies on
-(`chain._make_persistent`)."""
+from .attestation_verification import (
+    AttestationError,
+    AttestationVerifier,
+    ObservedCache,
+    VerifiedAggregatedAttestation,
+    VerifiedUnaggregatedAttestation,
+    is_aggregator,
+)
+from .chain import (
+    BeaconChain,
+    BlockError,
+    ChainSegmentResult,
+    GossipVerifiedBlock,
+)
+from .harness import BeaconChainHarness
+from .op_pool import OperationPool
+
+__all__ = [
+    "AttestationError",
+    "AttestationVerifier",
+    "ObservedCache",
+    "VerifiedAggregatedAttestation",
+    "VerifiedUnaggregatedAttestation",
+    "is_aggregator",
+    "BeaconChain",
+    "BlockError",
+    "ChainSegmentResult",
+    "GossipVerifiedBlock",
+    "BeaconChainHarness",
+    "OperationPool",
+]

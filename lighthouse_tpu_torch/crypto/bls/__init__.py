@@ -4,12 +4,16 @@ Mirrors the reference's backend-generic `crypto/bls` crate
 (crypto/bls/src/lib.rs:84-139): the same type family (SecretKey, PublicKey,
 Signature, AggregateSignature, SignatureSet) works over any backend; the
 reference selects backends at compile time via cargo features
-(blst / fake_crypto), we select at runtime via `set_backend`.
+(blst / fake_crypto), we select at runtime via `set_backend`; until it
+is called the backend follows the default device (lighthouse_tpu_torch
+.device): `cuda` on a `cuda` device, `host` on the CPU.
 
 Backends:
-  "host"        — pure-Python BLS12-381 (the blst analog; default)
+  "host"        — pure-Python BLS12-381 (the blst analog; the CPU
+                  device's default)
   "cuda"        — host ops + verify_signature_sets on the card
-                  (ops/bls381_verify over the hand-written CUDA kernels)
+                  (ops/bls381_verify over the hand-written CUDA kernels;
+                  the `cuda` device's default)
   "fake_crypto" — always-valid no-op crypto for spec-logic tests
                   (crypto/bls/src/impls/fake_crypto.rs equivalent)
 
@@ -32,6 +36,7 @@ import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 
+from ...device import default_device
 from ...metrics import REGISTRY, inc_counter
 from ...utils.tracing import span
 from ..bls12_381 import (
@@ -272,7 +277,7 @@ class PublicKey:
     @classmethod
     def from_bytes(cls, data: bytes) -> "PublicKey":
         pk = cls(data)
-        if not _backend.fake:
+        if not _active().fake:
             pk.point()  # force decompression => validity check
         return pk
 
@@ -307,7 +312,7 @@ class PublicKey:
         """KeyValidate: decompresses, rejects infinity, checks subgroup.
         The subgroup check is deduplicated through the decompression cache's
         validated flag — one check per encoding, not per call."""
-        if _backend.fake:
+        if _active().fake:
             return True
         try:
             pt = self.point()
@@ -367,7 +372,7 @@ class Signature:
         return _SIG_CACHE.validate(self._bytes, pt, g2_in_subgroup)
 
     def verify(self, pubkey: PublicKey, message: bytes) -> bool:
-        return _backend.verify(self, pubkey, message)
+        return _active().verify(self, pubkey, message)
 
     def __eq__(self, other):
         return isinstance(other, Signature) and self._bytes == other._bytes
@@ -407,13 +412,13 @@ class SecretKey:
         return self._scalar
 
     def public_key(self) -> PublicKey:
-        if _backend.fake:
+        if _active().fake:
             return PublicKey(_fake_pubkey_bytes(self._scalar))
         # fixed-base window table: ≤64 additions instead of a 256-bit ladder
         return PublicKey.from_point(g1_gen_mul(self._scalar))
 
     def sign(self, message: bytes) -> Signature:
-        return _backend.sign(self, message)
+        return _active().sign(self, message)
 
 
 @dataclass
@@ -445,14 +450,14 @@ class AggregateSignature:
         return agg
 
     def add_assign(self, sig: Signature):
-        if _backend.fake:
+        if _active().fake:
             self._empty = False
             return
         self._point = pt_add(FQ2, self._point, sig.point())
         self._empty = False
 
     def to_signature(self) -> Signature:
-        if _backend.fake:
+        if _active().fake:
             return Signature(INFINITY_SIGNATURE)
         if self._empty:
             return Signature(INFINITY_SIGNATURE)
@@ -463,7 +468,7 @@ class AggregateSignature:
 
 
 def aggregate_pubkeys(pubkeys) -> PublicKey:
-    if _backend.fake:
+    if _active().fake:
         return pubkeys[0] if pubkeys else PublicKey(INFINITY_PUBLIC_KEY)
     acc = inf(FQ)
     for pk in pubkeys:
@@ -931,34 +936,50 @@ _BACKENDS = {
     "cuda": _CudaBackend(),
 }
 
-_backend = _BACKENDS["host"]
+# None: follow the default device (`cuda` on a `cuda` device, `host` on
+# the CPU); a name given to set_backend wins until set_backend(None).
+_backend = None
 
 
-def set_backend(name: str):
+def _active():
+    if _backend is not None:
+        return _backend
+    return _BACKENDS["cuda" if default_device().type == "cuda" else "host"]
+
+
+def set_backend(name: str | None):
+    """Pin the backend by name, or with None let it follow the default
+    device again."""
     global _backend
-    _backend = _BACKENDS[name]
+    _backend = None if name is None else _BACKENDS[name]
+
+
+def backend_setting() -> str | None:
+    """The name given to set_backend, or None while the backend follows
+    the device (what a caller saves to restore it)."""
+    return None if _backend is None else _backend.name
 
 
 def get_backend():
-    return _backend
+    return _active()
 
 
 def backend_name() -> str:
-    return _backend.name
+    return _active().name
 
 
 def verify_signature_sets(sets, rng=None) -> bool:
     """Module-level entry used by state_processing's BlockSignatureVerifier
     and the attestation batch path (the reference's bls::verify_signature_sets,
     lib.rs / impls/blst.rs:35)."""
-    return _backend.verify_signature_sets(sets, rng)
+    return _active().verify_signature_sets(sets, rng)
 
 
 def sign_batch(secret_keys, messages) -> list:
     """Module-level batch signing (the validator client's `vc_sign_batch`
     stage): signatures for (secret_keys[i], messages[i]) in submission
     order, grouped by distinct message behind the backend seam."""
-    return _backend.sign_batch(secret_keys, messages)
+    return _active().sign_batch(secret_keys, messages)
 
 
 # ---------------------------------------------------------------------------

@@ -479,6 +479,7 @@ class ForkChoice:
             proposer_boost_root=self.store.proposer_boost_root,
             proposer_boost_amount=boost_amount,
             equivocating_indices=self.store.equivocating_indices,
+            finalized_root=self.store.finalized_checkpoint.root,
         )
 
     def contains_block(self, root: bytes) -> bool:

@@ -165,6 +165,10 @@ class ProtoArray:
         self.indices: dict[bytes, int] = {}
         self.justified_epoch = justified_epoch
         self.finalized_epoch = finalized_epoch
+        #: the store's finalized checkpoint root: a node descending from it
+        #: is viable whatever finalized epoch its own state records (spec
+        #: filter_block_tree's correct_finalized)
+        self.finalized_root: bytes | None = None
         self.prune_threshold = 256
         # Previous proposer boost, subtracted on the next score pass
         # (the reference stores this as previous_proposer_boost).
@@ -383,7 +387,9 @@ class ProtoArray:
     def _viability_mask(self) -> np.ndarray:
         """Vectorized node_is_viable_for_head over all live nodes: the
         (unrealized-or-realized) checkpoints must agree with the store's,
-        and the payload must not be invalid."""
+        and the payload must not be invalid. A node whose finalized epoch
+        is below the store's is still viable when it descends from the
+        store's finalized root (a block on a non-genesis anchor)."""
         n = self._n
         uje = self._uje[:n]
         ufe = self._ufe[:n]
@@ -391,7 +397,33 @@ class ProtoArray:
         f = np.where(ufe >= 0, ufe, self._fe[:n])
         ok_j = (j >= self.justified_epoch) | (self.justified_epoch == 0)
         ok_f = (f >= self.finalized_epoch) | (self.finalized_epoch == 0)
+        if not ok_f.all():
+            ok_f = ok_f | self._finalized_descendants()
         return (self._exec[:n] != _ES_INVALID) & ok_j & ok_f
+
+    def _finalized_descendants(self) -> np.ndarray:
+        """Which live nodes are the finalized root or descend from it
+        (parents precede their children in the node axis)."""
+        n = self._n
+        out = np.zeros(n, dtype=bool)
+        fi = self.indices.get(self.finalized_root) if self.finalized_root is not None else None
+        if fi is None:
+            return out
+        out[fi] = True
+        parents = self._parents[:n].tolist()
+        for i in range(fi + 1, n):
+            p = parents[i]
+            if p >= 0 and out[p]:
+                out[i] = True
+        return out
+
+    def _descends_from_finalized(self, i: int) -> bool:
+        fi = self.indices.get(self.finalized_root) if self.finalized_root is not None else None
+        if fi is None:
+            return False
+        while i > fi:
+            i = int(self._parents[i])
+        return i == fi
 
     def _viable_index(self, i: int) -> bool:
         if self._exec[i] == _ES_INVALID:
@@ -401,7 +433,11 @@ class ProtoArray:
         j = uje if uje >= 0 else int(self._je[i])
         f = ufe if ufe >= 0 else int(self._fe[i])
         correct_justified = j >= self.justified_epoch or self.justified_epoch == 0
-        correct_finalized = f >= self.finalized_epoch or self.finalized_epoch == 0
+        correct_finalized = (
+            f >= self.finalized_epoch
+            or self.finalized_epoch == 0
+            or self._descends_from_finalized(i)
+        )
         return correct_justified and correct_finalized
 
     def _refresh_best_children(self):
@@ -668,6 +704,7 @@ class ProtoArrayForkChoice:
         finalized_epoch: int,
     ):
         self.proto_array = ProtoArray(justified_epoch, finalized_epoch)
+        self.proto_array.finalized_root = finalized_root
         # validator-axis vote columns; length = allocated capacity, a row
         # of (0, 0, 0) is "never voted" (rid 0 = the zero root)
         self._cur_rid = np.zeros(0, dtype=np.uint32)
@@ -841,7 +878,10 @@ class ProtoArrayForkChoice:
         proposer_boost_root: bytes = _ZERO_ROOT,
         proposer_boost_amount: int = 0,
         equivocating_indices: set[int] | None = None,
+        finalized_root: bytes | None = None,
     ) -> bytes:
+        if finalized_root is not None:
+            self.proto_array.finalized_root = finalized_root
         with span("fork_choice_get_head", nodes=self.proto_array._n):
             with span("delta_compute"):
                 pos, neg = self._compute_deltas(

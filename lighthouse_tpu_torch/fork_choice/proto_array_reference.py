@@ -55,6 +55,7 @@ class ProtoArrayReference:
         self.indices: dict[bytes, int] = {}
         self.justified_epoch = justified_epoch
         self.finalized_epoch = finalized_epoch
+        self.finalized_root: bytes | None = None
         self.prune_threshold = 256
         # Previous proposer boost, subtracted on the next score pass
         # (the reference stores this as previous_proposer_boost).
@@ -156,8 +157,20 @@ class ProtoArrayReference:
             else node.finalized_epoch
         )
         correct_justified = j >= self.justified_epoch or self.justified_epoch == 0
-        correct_finalized = f >= self.finalized_epoch or self.finalized_epoch == 0
+        correct_finalized = (
+            f >= self.finalized_epoch
+            or self.finalized_epoch == 0
+            or self._descends_from_finalized(node)
+        )
         return correct_justified and correct_finalized
+
+    def _descends_from_finalized(self, node: ProtoNode) -> bool:
+        """Whether `node` is the store's finalized root or descends from it."""
+        fi = self.indices.get(self.finalized_root) if self.finalized_root is not None else None
+        i = self.indices.get(node.root)
+        while fi is not None and i is not None and i > fi:
+            i = self.nodes[i].parent
+        return fi is not None and i == fi
 
     def _leads_to_viable_head(self, node: ProtoNode) -> bool:
         if node.best_descendant is not None:
@@ -359,6 +372,7 @@ class ProtoArrayForkChoiceReference:
         finalized_epoch: int,
     ):
         self.proto_array = ProtoArrayReference(justified_epoch, finalized_epoch)
+        self.proto_array.finalized_root = finalized_root
         self.votes: dict[int, VoteTracker] = {}
         self.balances: list[int] = []
         self.proto_array.on_block(
@@ -432,7 +446,10 @@ class ProtoArrayForkChoiceReference:
         proposer_boost_root: bytes = b"\x00" * 32,
         proposer_boost_amount: int = 0,
         equivocating_indices: set[int] | None = None,
+        finalized_root: bytes | None = None,
     ) -> bytes:
+        if finalized_root is not None:
+            self.proto_array.finalized_root = finalized_root
         deltas = self._compute_deltas(
             justified_state_balances, equivocating_indices or set()
         )

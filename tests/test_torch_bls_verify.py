@@ -82,7 +82,7 @@ def _verdicts(raw: list[tuple], seed: int = 5) -> tuple[bool, bool]:
     """(port cuda backend on the CPU, JAX host backend), same Random."""
     port_sets = [bls.SignatureSet(bls.Signature(s), [bls.PublicKey(p) for p in pks], m) for s, pks, m in raw]
     jax_sets = [jax_bls.SignatureSet(jax_bls.Signature(s), [jax_bls.PublicKey(p) for p in pks], m) for s, pks, m in raw]
-    prev = bls.backend_name()
+    prev = bls.backend_setting()
     try:
         bls.set_backend("cuda")
         got = bls.verify_signature_sets(port_sets, random.Random(seed))
@@ -165,7 +165,7 @@ def test_cuda_backend_raises_without_a_card():
     raw = _batch(2)
     sets = [bls.SignatureSet(bls.Signature(s), [bls.PublicKey(p) for p in pks], m) for s, pks, m in raw]
     lighthouse_tpu_torch.set_default_device("cuda")
-    prev = bls.backend_name()
+    prev = bls.backend_setting()
     try:
         bls.set_backend("cuda")
         with pytest.raises(RuntimeError, match="cuda"):

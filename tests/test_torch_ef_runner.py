@@ -29,7 +29,7 @@ FAMILIES = ("operations", "sanity", "epoch_processing", "shuffling", "ssz_static
 
 @pytest.fixture(autouse=True)
 def cpu_device_and_backends():
-    prev = default_device(), jax_bls.backend_name(), port_bls.backend_name()
+    prev = default_device(), jax_bls.backend_name(), port_bls.backend_setting()
     set_default_device("cpu")
     yield
     set_default_device(prev[0])
@@ -57,7 +57,7 @@ def _run(ef, bls, backend: str, root, config: str):
 def reports(vectors):
     """Both runners on both configurations: `minimal` under fake_crypto,
     `general` (the BLS vectors) under the host backends."""
-    prev = default_device(), jax_bls.backend_name(), port_bls.backend_name()
+    prev = default_device(), jax_bls.backend_name(), port_bls.backend_setting()
     set_default_device("cpu")
     try:
         return {

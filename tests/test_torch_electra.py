@@ -69,7 +69,7 @@ PORT = SimpleNamespace(
 
 @pytest.fixture(autouse=True)
 def cpu_device_and_backends():
-    prev = default_device(), jax_bls.backend_name(), port_bls.backend_name()
+    prev = default_device(), jax_bls.backend_name(), port_bls.backend_setting()
     set_default_device("cpu")
     jax_bls.set_backend("fake_crypto")
     port_bls.set_backend("fake_crypto")
@@ -394,7 +394,7 @@ def electra_block():
     Electra pre-state by chip_smoke.electra_prestate) and a block for the
     next slot built by chip_smoke.transition_block with
     chip_smoke.ElectraOperations at minimal counts, on the port."""
-    prev = jax_bls.backend_name(), port_bls.backend_name(), default_device()
+    prev = jax_bls.backend_name(), port_bls.backend_setting(), default_device()
     jax_bls.set_backend("fake_crypto")
     port_bls.set_backend("host")
     set_default_device("cpu")

@@ -351,7 +351,7 @@ def test_bls_cuda_backend_verdict(cuda, valid):
         sets.append(bls.SignatureSet(sig, [pks[i] for i in signers], msg))
     if not valid:
         sets[5] = bls.SignatureSet(sets[4].signature, sets[5].pubkeys, sets[5].message)
-    prev = bls.backend_name()
+    prev = bls.backend_setting()
     try:
         bls.set_backend("cuda")
         before = dict(K4.COUNTS)
@@ -783,3 +783,26 @@ def test_dryrun_multichip_on_two_cards(cuda):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards")
     dryrun_multichip(2, device="cuda", timeout=600)
+
+
+def test_minimal_harness_finalizes_on_the_card_with_the_default_backend(cuda):
+    """The first milestone on the card: BeaconChainHarness on the minimal
+    preset, 64 interop validators, 32 slots, no set_backend call. Every
+    block import and every slot's attestation batch verifies on the card
+    (K4's multi-pairing launched for each); justified 3, finalized 2."""
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.types import minimal_spec
+
+    prev = bls.backend_setting()
+    bls.set_backend(None)
+    try:
+        assert bls.backend_name() == "cuda"
+        h = BeaconChainHarness(minimal_spec(), MinimalEthSpec, validator_count=64)
+        before = K4.COUNTS["multi_pairing"]
+        h.extend_chain(32)
+        torch.cuda.synchronize()
+        assert K4.COUNTS["multi_pairing"] - before >= 64
+        assert (h.justified_epoch, h.finalized_epoch, int(h.chain.head_state.slot)) == (3, 2, 32)
+    finally:
+        bls.set_backend(prev)

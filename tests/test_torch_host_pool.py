@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent / "lighthouse_tpu_torch"
 
 @pytest.fixture(autouse=True)
 def fresh_pool():
-    prev = bls.get_backend().name
+    prev = bls.backend_setting()
     bls.set_backend("host")
     host_pool.reset_pool()
     yield

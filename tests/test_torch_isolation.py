@@ -73,6 +73,38 @@ def _imports(path: Path) -> set[str]:
     return names
 
 
+# the chain layer: the store, the slot clock, the mock execution layer,
+# the beacon processor and beacon_chain/
+CHAIN_MODULES = (
+    "utils/slot_clock.py", "utils/timeout_lock.py", "utils/keccak.py", "utils/rlp.py",
+    "beacon_processor/__init__.py", "store/kv.py", "store/hot_cold.py", "store/native.py",
+    "store/__init__.py", "store/migrator.py", "execution_layer/__init__.py", "execution_layer/mock.py",
+    "execution_layer/block_hash.py", "beacon_chain/attestation_verification.py", "beacon_chain/op_pool.py",
+    "beacon_chain/sync_pool.py", "beacon_chain/block_times_cache.py", "beacon_chain/events.py",
+    "beacon_chain/validator_monitor.py", "beacon_chain/state_advance.py", "beacon_chain/chain.py",
+    "beacon_chain/harness.py", "beacon_chain/__init__.py",
+)
+
+
+@pytest.mark.parametrize("path", CHAIN_MODULES)
+def test_chain_module_imports_neither_jax_nor_the_reference(path):
+    assert FORBIDDEN and not _imports(PKG / path) & set(FORBIDDEN)
+
+
+def test_importing_the_chain_modules_loads_no_jax_or_yaml():
+    mods = ["lighthouse_tpu_torch." + p[: -len(".py")].replace("/", ".").removesuffix(".__init__") for p in CHAIN_MODULES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('yaml',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

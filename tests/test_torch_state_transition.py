@@ -64,7 +64,7 @@ FAR = 2**64 - 1
 
 @pytest.fixture(autouse=True)
 def cpu_device_and_backends():
-    prev = default_device(), jax_bls.backend_name(), port_bls.backend_name()
+    prev = default_device(), jax_bls.backend_name(), port_bls.backend_setting()
     set_default_device("cpu")
     yield
     set_default_device(prev[0])
