@@ -122,7 +122,30 @@ each, any failure ends the run with a non-zero exit code:
    equal; (d) 64 gossip attestations to the new head accepted in one
    batch, and of a batch of 8 only the one signed over another message
    refused. Each step's seconds on a line of its own with the card's
-   name and power limit.
+   name and power limit;
+11. the Beacon API, every request over HTTP on 127.0.0.1: (a) node A, a
+   ``BeaconChain`` anchored on a copy of phase 6's pre-state (as phase 10
+   (b)) behind ``HttpApiServer``: the six sidecars through the chain, then
+   phase 6's block POSTed through ``eth2.BeaconNodeHttpClient``
+   (``publish_block_ssz``): 200, the head the block and its state root
+   phase 6's post-state root; the copy with one bad attestation signature
+   (its own sidecars staged): 400, head unmoved; 64 gossip attestations
+   (200), then 8 with one bad (202, one refused); (b) reads: the head
+   root, finality checkpoints, every validator and three by id, every
+   balance, the committees, the proposer duties; the block, attestation
+   and sync-committee rewards, each equal to the rewards functions called
+   directly; the light-client bootstrap at the anchor checked by
+   ``initialize_light_client_store``; (c) the same reads through
+   ``HttpApiServer(chain, workers=2)``'s public port, equal, with the
+   forwards by cause and no worker death (a request that would dispatch a
+   kernel in a forked worker goes to the parent); (d) node B from A's head
+   block and state over HTTP, the state rooted cold on the card against
+   the block's state root, ``BeaconChain.from_checkpoint``; (e) on the
+   minimal preset with Altair from genesis, ``checkpoint_boot`` from a
+   harness that finalized, the harness's later blocks POSTed to B (each
+   verified on the card) until B's head and finality are the harness's,
+   and a light client through the update route. Each step's seconds on a
+   line of its own with the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -2590,7 +2613,7 @@ def _refused(mid, signed, spec, E) -> bool:
     return False
 
 
-def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitments: list[bytes]) -> tuple[dict, bytes]:
+def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitments: list[bytes]) -> tuple[dict, bytes, bytes]:
     """Block import across an epoch boundary on the 1M-validator state, as
     a node runs it: per_slot_processing over the boundary (the epoch
     transition, the sweep on the epoch-sweep kernel), per_block_processing
@@ -2600,7 +2623,8 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
     and scores byte-equal to the port's numpy sweep on the same pre-state
     arrays; (b) the post-block root equal to the host-lane fold; (c) the
     block accepted; (d) the block with one attestation signed over another
-    message refused."""
+    message refused. Returns the record, the block and that refused copy
+    (re-signed by its proposer), both SSZ."""
     import statistics
 
     from lighthouse_tpu_torch.crypto import bls
@@ -2718,7 +2742,7 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
         },
     }
     emit(out)
-    return out, blk["signed"]
+    return out, blk["signed"], blk["tampered"]
 
 
 # ---------------------------------------------------------------------------
@@ -4445,6 +4469,449 @@ def phase_chain_main_path(
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the Beacon API
+# ---------------------------------------------------------------------------
+
+API_HARNESS_SLOTS = 32
+# (e): the harness's blocks after node B boots, at least (an epoch)
+API_HARNESS_FOLLOW = 8
+SSZ_TYPE = "application/octet-stream"
+
+
+def _http(base: str, path: str, data: bytes | None = None, content_type: str | None = None, accept: str | None = None) -> tuple:
+    """(status, headers, body) of one request to a Beacon API server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, method="GET" if data is None else "POST")
+    if accept:
+        req.add_header("Accept", accept)
+    if content_type:
+        req.add_header("Content-Type", content_type)
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _metric_series(text: str, name: str) -> dict:
+    """{labels: value} of one metric in a Prometheus text exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            labels, value = line[len(name) + 1 :].rsplit("} ", 1)
+            out[labels] = float(value)
+    return out
+
+
+def _json_roundtrip(obj):
+    return json.loads(json.dumps(obj))
+
+
+def phase_api_main_path(
+    pre, signed_bytes: bytes, tampered_bytes: bytes, post_root: bytes, kzg, blobs: list[bytes], types, E, sk_of: dict, smi: str
+) -> dict:
+    """The Beacon API on the card, with the BLS backend following the
+    device (`cuda`), every request over HTTP on 127.0.0.1:
+    (a) node A: a BeaconChain over HotColdDB(MemoryStore()) anchored on a
+        copy of phase 6's 1M-validator pre-state (as phase 10 (b)) behind
+        HttpApiServer(chain, port=0); the six sidecars through the chain,
+        then phase 6's block through BeaconNodeHttpClient.publish_block_ssz:
+        200, head the block, its state root phase 6's post-state root; the
+        copy with one attestation signed over another message (re-signed
+        by its proposer, its own six sidecars staged): 400, head unmoved;
+        64 gossip attestations POSTed (200), then 8 with one bad (202, one
+        of eight refused, as process_attestation_batch refuses it);
+    (b) reads on A: the head state's root (phase 6's post-state root,
+        which phase 6 held to the host-lane fold), finality checkpoints,
+        every validator and three by id, every balance, the committees,
+        the proposer duties; the block, attestation and sync-committee
+        rewards of the posted block and the epoch its transition rewarded,
+        each equal to the rewards functions called directly; the light
+        client's bootstrap at the anchor, checked by
+        initialize_light_client_store (the update route answers 404: the
+        anchor's finalized checkpoint names a block no chain holds);
+    (c) HttpApiServer(chain, workers=2) on A: every (b) read a worker may
+        answer, through the public port, equal to (b)'s body; the
+        forwards by cause; no worker death;
+    (d) node B at 1M: A's head block and head state SSZ over HTTP (A's
+        only block; its anchor has none), the block root checked against
+        the served head root, the state decoded and rooted cold on the
+        card against the block's state root, BeaconChain.from_checkpoint;
+        B's head is A's head block;
+    (e) the minimal preset: a harness with Altair from genesis (64
+        validators) extended until it finalizes, behind a server; node B
+        by checkpoint_boot(url, ...); the harness's blocks past B's anchor
+        and its next ones, until it finalizes past the anchor and one
+        more, POSTed to B's API, each verified on the card; B's
+        head and finalized checkpoint equal the harness's; a light client
+        bootstrapped at the finalized root takes the update route's
+        update (its sync aggregate verified on the host, as the JAX
+        package does).
+    Each step's seconds on its own line with the card's name and power
+    limit; the kernels each step launched."""
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch import default_device
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
+    from lighthouse_tpu_torch.beacon_chain.chain import BeaconChain
+    from lighthouse_tpu_torch.beacon_chain.checkpoint_sync import checkpoint_boot
+    from lighthouse_tpu_torch.beacon_chain.rewards import (
+        compute_attestation_rewards,
+        compute_block_rewards,
+        compute_sync_committee_rewards,
+    )
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.eth2 import ApiClientError, BeaconNodeHttpClient
+    from lighthouse_tpu_torch.http_api import HttpApiServer
+    from lighthouse_tpu_torch.http_api.workers import _LOCAL_GET_PREFIXES
+    from lighthouse_tpu_torch.light_client import (
+        build_light_client_types,
+        initialize_light_client_store,
+        process_light_client_update,
+    )
+    from lighthouse_tpu_torch.ssz.core import List as SszList
+    from lighthouse_tpu_torch.ssz.merkle_proof import build_blob_sidecars
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    on_card = default_device().type == "cuda"
+    if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
+    steps, launches = {}, {}
+
+    def step(name, fn):
+        before = chain_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
+        emit({"phase": "api_step", "step": name, "s": steps[name], "launches": launches[name], "card": smi})
+        return res
+
+    # prepared outside the counted run: both blocks' sidecars, the anchor
+    T = types.types_for_fork("deneb")
+    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
+    tampered = T.SignedBeaconBlock.deserialize(tampered_bytes)
+    root = bytes(signed.message.hash_tree_root())
+    tampered_root = bytes(tampered.message.hash_tree_root())
+    slot = int(signed.message.slot)
+    epoch = slot // E.SLOTS_PER_EPOCH
+    sidecars = build_blob_sidecars(signed, blobs, kzg, E)
+    tampered_sidecars = build_blob_sidecars(tampered, blobs, kzg, E)
+    anchor = pre.copy()
+    spec = mainnet_spec()
+    servers = []
+
+    # the main path: counts at zero just before, read just after
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_chain_counts()
+    try:
+        # (a) node A and the writes
+        clock = ManualSlotClock(genesis_time=int(anchor.genesis_time), seconds_per_slot=spec.seconds_per_slot)
+        chain = step(
+            "a_chain_init",
+            lambda: BeaconChain(HotColdDB(MemoryStore()), genesis_state=anchor, spec=spec, E=E, slot_clock=clock, kzg=kzg),
+        )
+        anchor_root = bytes(chain.genesis_block_root)
+        if anchor_root != bytes(signed.message.parent_root):
+            raise AssertionError("(a) the block's parent is not the anchor's filled header")
+        server = HttpApiServer(chain, port=0).start()
+        servers.append(server)
+        base = f"http://127.0.0.1:{server.port}"
+        client = BeaconNodeHttpClient(base, timeout=900)
+        clock.set_slot(slot)
+        step("a_process_blob_sidecars", lambda: chain.process_blob_sidecars(root, sidecars))
+        code = step("a_publish_block", lambda: client.publish_block_ssz(signed_bytes))
+        if code != 200 or bytes(chain.head_root) != root:
+            raise AssertionError(f"(a) the posted block answered {code}, head {bytes(chain.head_root).hex()}")
+        if bytes(chain.head_state.hash_tree_root()) != post_root:
+            raise AssertionError("(a) the head state's root is not phase 6's post-state root")
+        step("a_process_tampered_sidecars", lambda: chain.process_blob_sidecars(tampered_root, tampered_sidecars))
+
+        def refused_block():
+            try:
+                client.publish_block_ssz(tampered_bytes)
+            except ApiClientError as e:
+                return e.code, str(e)
+            raise AssertionError("(a) the block with a wrong attestation signature was accepted")
+
+        tampered_code, tampered_msg = step("a_publish_tampered_block", refused_block)
+        if tampered_code != 400 or "signature" not in tampered_msg or bytes(chain.head_root) != root:
+            raise AssertionError(f"(a) the tampered block: {tampered_code} {tampered_msg}, head {bytes(chain.head_root).hex()}")
+        atts = _chain_attestations(
+            chain.head_state, types, E, spec, sk_of, root, CHAIN_GOSSIP_ATTESTATIONS + CHAIN_GOSSIP_TAMPERED_BATCH
+        )
+        clean, rest = atts[:CHAIN_GOSSIP_ATTESTATIONS], atts[CHAIN_GOSSIP_ATTESTATIONS:]
+        bad_at = 3
+        other = _chain_attestations(chain.head_state, types, E, spec, sk_of, b"\x99" * 32, len(atts))[CHAIN_GOSSIP_ATTESTATIONS + bad_at]
+        rest[bad_at] = types.Attestation(aggregation_bits=rest[bad_at].aggregation_bits, data=rest[bad_at].data, signature=other.signature)
+        att_list = SszList[types.Attestation, 1024]
+        posted = step(
+            "a_publish_attestations",
+            lambda: _http(base, "/eth/v1/beacon/pool/attestations", att_list.serialize_value(clean), SSZ_TYPE),
+        )
+        if posted[0] != 200:
+            raise AssertionError(f"(a) the clean attestations answered {posted[0]} {posted[2][:200]!r}")
+        posted_bad = step(
+            "a_publish_tampered_attestations",
+            lambda: _http(base, "/eth/v1/beacon/pool/attestations", att_list.serialize_value(rest), SSZ_TYPE),
+        )
+        if posted_bad[0] != 202 or f"1/{len(rest)} attestations rejected".encode() not in posted_bad[2]:
+            raise AssertionError(f"(a) the batch with one bad signature answered {posted_bad[0]} {posted_bad[2][:200]!r}")
+
+        # (b) reads on A
+        bodies = {}
+
+        def read(name, path, accept=None):
+            status, headers, body = step(f"b_{name}", lambda: _http(base, path, accept=accept))
+            if status != 200:
+                raise AssertionError(f"(b) {path}: {status} {body[:200]!r}")
+            bodies[path, accept] = (name, body)
+            return body, headers
+
+        head_state = chain.head_state
+        n = len(head_state.validators)
+        served_root = json.loads(read("state_root", "/eth/v1/beacon/states/head/root")[0])["data"]["root"]
+        if served_root != "0x" + post_root.hex():
+            raise AssertionError("(b) the served head state root is not phase 6's post-state root")
+        cps = json.loads(read("finality_checkpoints", "/eth/v1/beacon/states/head/finality_checkpoints")[0])["data"]
+        for key, cp in (
+            ("previous_justified", head_state.previous_justified_checkpoint),
+            ("current_justified", head_state.current_justified_checkpoint),
+            ("finalized", head_state.finalized_checkpoint),
+        ):
+            if cps[key] != {"epoch": str(int(cp.epoch)), "root": "0x" + bytes(cp.root).hex()}:
+                raise AssertionError(f"(b) finality checkpoint {key}: {cps[key]}")
+        validators = read("validators", "/eth/v1/beacon/states/head/validators")[0]
+        if validators.count(b'"validator":{') != n:
+            raise AssertionError("(b) the validators route did not list every validator")
+        pick = (0, n // 2, n - 1)
+        by_id = json.loads(read("validators_by_id", f"/eth/v1/beacon/states/head/validators?id={pick[0]},{pick[1]},0x{bytes(head_state.validators[pick[2]].pubkey).hex()}")[0])["data"]
+        if [int(v["index"]) for v in by_id] != list(pick) or any(
+            v["validator"]["pubkey"] != "0x" + bytes(head_state.validators[int(v["index"])].pubkey).hex() for v in by_id
+        ):
+            raise AssertionError(f"(b) validators by id: {[v['index'] for v in by_id]}")
+        balances = read("validator_balances", "/eth/v1/beacon/states/head/validator_balances")[0]
+        if balances.count(b'"balance":') != n:
+            raise AssertionError("(b) the balances route did not list every validator")
+        committees = json.loads(read("committees", "/eth/v1/beacon/states/head/committees")[0])["data"]
+        seated = sum(len(c["validators"]) for c in committees)
+        duties = step("b_proposer_duties", lambda: client.get_proposer_duties(epoch))
+        if len(duties) != E.SLOTS_PER_EPOCH or int(duties[0]["validator_index"]) != int(signed.message.proposer_index):
+            raise AssertionError("(b) the proposer duties do not name the block's proposer")
+        # rewards over HTTP, each against the function called directly
+        parent_state = chain.state_for_block_root(anchor_root)
+        served = json.loads(read("rewards_block", f"/eth/v1/beacon/rewards/blocks/0x{root.hex()}")[0])["data"]
+        direct = step("b_rewards_block_direct", lambda: compute_block_rewards(signed, parent_state, spec, E, chain.types))
+        if served != _json_roundtrip(direct):
+            raise AssertionError("(b) block rewards over HTTP differ from the direct call")
+        rewarded_epoch = epoch - 2
+        status, _, body = step(
+            "b_rewards_attestations",
+            lambda: _http(base, f"/eth/v1/beacon/rewards/attestations/{rewarded_epoch}", b"", "application/json"),
+        )
+        if status != 200:
+            raise AssertionError(f"(b) attestation rewards: {status} {body[:200]!r}")
+        end_state = chain.state_for_block_root(anchor_root).copy()
+        direct = step(
+            "b_rewards_attestations_direct",
+            lambda: compute_attestation_rewards(end_state, spec, E, chain.types.fork_of_state(end_state)),
+        )
+        if json.loads(body)["data"] != _json_roundtrip(direct):
+            raise AssertionError("(b) attestation rewards over HTTP differ from the direct call")
+        rewarded = len(direct["total_rewards"])
+        status, _, body = step(
+            "b_rewards_sync_committee",
+            lambda: _http(base, f"/eth/v1/beacon/rewards/sync_committee/0x{root.hex()}", b"", "application/json"),
+        )
+        direct = compute_sync_committee_rewards(signed, parent_state, spec, E, chain.types)
+        if status != 200 or json.loads(body)["data"] != _json_roundtrip(direct):
+            raise AssertionError(f"(b) sync committee rewards over HTTP differ from the direct call ({status})")
+        # the light client: bootstrap at the anchor; no update at 1M
+        boot_body, boot_headers = read("light_client_bootstrap", f"/eth/v1/beacon/light_client/bootstrap/0x{anchor_root.hex()}")
+        lt = build_light_client_types(E, electra=boot_headers.get("Eth-Consensus-Version") == "electra")
+        lc_store = initialize_light_client_store(anchor_root, lt.LightClientBootstrap.deserialize(boot_body), E)
+        if bytes(lc_store.finalized_header.beacon.hash_tree_root()) != anchor_root:
+            raise AssertionError("(b) the light client's bootstrap header is not the anchor's")
+        update_status, _, update_body = _http(base, "/eth/v1/beacon/light_client/update")
+        if update_status != 404 or b"finalized state unavailable" not in update_body:
+            raise AssertionError(f"(b) the update route answered {update_status} {update_body[:200]!r}")
+
+        # (c) the serving workers, forked from this process
+        tier = HttpApiServer(chain, workers=2).start()
+        servers.append(tier)
+        tier_base = f"http://127.0.0.1:{tier.port}"
+        served_by = {}
+        for (path, accept), (name, body) in bodies.items():
+            if not path.split("?")[0].startswith(_LOCAL_GET_PREFIXES):
+                continue
+            status, headers, got = step(f"c_{name}", lambda: _http(tier_base, path, accept=accept))
+            if status != 200 or got != body:
+                raise AssertionError(f"(c) {path} through a worker: {status}, body equal {got == body}")
+            served_by[name] = headers.get("X-Api-Served-By")
+        time.sleep(1.0)  # the workers' metric snapshots
+        metrics = _http(f"http://127.0.0.1:{tier.parent_port}", "/metrics")[2].decode()
+        forwards = _metric_series(metrics, "api_worker_requests_forwarded_total")
+        respawns = _metric_series(metrics, "api_worker_respawns_total")
+        if respawns.get('reason="death"', 0) != 0 or len(tier._pool.worker_info()) != 2:
+            raise AssertionError(f"(c) worker respawns {respawns}, workers {tier._pool.worker_info()}")
+        tier.stop()
+        servers.remove(tier)
+
+        # (d) node B at 1M from A's head block and state
+        trusted = bytes.fromhex(client._get("/eth/v1/beacon/blocks/head/root")["data"]["root"][2:])
+        state_bytes = step("d_get_state_ssz", lambda: client.get_state_ssz("head"))
+        block_bytes = step("d_get_block_ssz", lambda: client.get_block_ssz("0x" + trusted.hex()))
+        state_b = step("d_decode_state", lambda: types.decode_by_fork("BeaconState", state_bytes))
+        block_b = types.decode_by_fork("SignedBeaconBlock", block_bytes)
+        if bytes(block_b.message.hash_tree_root()) != trusted or trusted != root:
+            raise AssertionError("(d) the served block does not hash to the served head root")
+        _make_persistent(state_b)
+        cold = step("d_cold_root", lambda: state_b.hash_tree_root())
+        if bytes(cold) != bytes(block_b.message.state_root):
+            raise AssertionError("(d) the served state does not root to the block's state root")
+        clock_b = ManualSlotClock(genesis_time=int(state_b.genesis_time), seconds_per_slot=spec.seconds_per_slot)
+        clock_b.set_slot(slot)
+        chain_b = step(
+            "d_from_checkpoint",
+            lambda: BeaconChain.from_checkpoint(HotColdDB(MemoryStore()), state_b, block_b, spec, E, clock_b, wss_checkpoint=trusted),
+        )
+        if bytes(chain_b.head_root) != root:
+            raise AssertionError("(d) node B's head is not A's head block")
+        d_out = {"state_bytes": len(state_bytes), "anchor_slot": int(chain_b.anchor_slot), "head_is_a_head": True}
+        del chain_b, state_b, state_bytes
+        server.stop()
+        servers.remove(server)
+        del chain, head_state, parent_state, end_state
+
+        # (e) the minimal preset: checkpoint_boot from a harness that finalized
+        spec_m = replace(minimal_spec(), altair_fork_epoch=0)
+        h = step("e_harness_genesis", lambda: BeaconChainHarness(spec_m, MinimalEthSpec, validator_count=CHAIN_HARNESS_VALIDATORS))
+        step("e_extend_chain", lambda: h.extend_chain(API_HARNESS_SLOTS))
+        fin_a = h.chain.finalized_checkpoint
+        if int(fin_a.epoch) < 1:
+            raise AssertionError(f"(e) the harness did not finalize: {int(fin_a.epoch)}")
+        source = HttpApiServer(h.chain).start()
+        servers.append(source)
+        source_base = f"http://127.0.0.1:{source.port}"
+        clock_e = ManualSlotClock(genesis_time=int(h.chain.head_state.genesis_time), seconds_per_slot=spec_m.seconds_per_slot)
+        chain_e = step(
+            "e_checkpoint_boot", lambda: checkpoint_boot(source_base, HotColdDB(MemoryStore()), spec_m, MinimalEthSpec, slot_clock=clock_e)
+        )
+        anchor_e = (int(chain_e.anchor_slot), bytes(chain_e.head_root))
+        if anchor_e[1] != bytes(fin_a.root):
+            raise AssertionError("(e) node B's anchor is not the harness's finalized root")
+        node_b = HttpApiServer(chain_e).start()
+        servers.append(node_b)
+        client_b = BeaconNodeHttpClient(f"http://127.0.0.1:{node_b.port}", timeout=300)
+        behind, r = [], bytes(h.chain.head_root)
+        while r != anchor_e[1]:
+            behind.append(h.chain._blocks_by_root[r])
+            r = bytes(behind[-1].message.parent_root)
+        blocks_e = list(reversed(behind))
+        # on until the harness finalizes past B's anchor, and one block more:
+        # that block's parent state names the new checkpoint (the update's)
+        fin_epoch = int(fin_a.epoch)
+
+        def follow():
+            while len(blocks_e) - len(behind) < API_HARNESS_FOLLOW or int(h.chain.finalized_checkpoint.epoch) == fin_epoch:
+                blocks_e.append(h.chain._blocks_by_root[h.extend_chain(1)[0]])
+                if len(blocks_e) - len(behind) > 2 * API_HARNESS_FOLLOW:
+                    raise AssertionError("(e) the harness did not finalize past node B's anchor")
+            blocks_e.append(h.chain._blocks_by_root[h.extend_chain(1)[0]])
+
+        step("e_extend_follow", follow)
+        pairings = []
+
+        def post_all():
+            for b in blocks_e:
+                clock_e.set_slot(int(b.message.slot))
+                k4 = k_pair.COUNTS["multi_pairing"]
+                if client_b.publish_block_ssz(b.serialize()) != 200:
+                    raise AssertionError(f"(e) node B refused the block at slot {int(b.message.slot)}")
+                pairings.append(k_pair.COUNTS["multi_pairing"] - k4)
+
+        step("e_post_blocks", post_all)
+        if on_card and any(k < 1 for k in pairings):
+            raise AssertionError(f"(e) a posted block was not verified on the card: {pairings}")
+        if bytes(chain_e.head_root) != bytes(h.chain.head_root) or (
+            int(chain_e.finalized_checkpoint.epoch), bytes(chain_e.finalized_checkpoint.root)
+        ) != (int(h.chain.finalized_checkpoint.epoch), bytes(h.chain.finalized_checkpoint.root)):
+            raise AssertionError("(e) node B's head or finalized checkpoint differs from the harness's")
+        # a light client follows the harness: bootstrap at B's anchor, then the update route
+        fin_root = anchor_e[1]
+        status, headers, boot_raw = _http(source_base, f"/eth/v1/beacon/light_client/bootstrap/0x{fin_root.hex()}")
+        lt_e = build_light_client_types(MinimalEthSpec, electra=headers.get("Eth-Consensus-Version") == "electra")
+        store_e = initialize_light_client_store(fin_root, lt_e.LightClientBootstrap.deserialize(boot_raw), MinimalEthSpec)
+        status, _, update_raw = _http(source_base, "/eth/v1/beacon/light_client/update")
+        if status != 200:
+            raise AssertionError(f"(e) the update route answered {status}")
+        update = lt_e.LightClientUpdate.deserialize(update_raw)
+        step(
+            "e_light_client_update",
+            lambda: process_light_client_update(
+                store_e, update, current_slot=int(h.chain.head_state.slot) + 1, spec=spec_m, E=MinimalEthSpec,
+                genesis_validators_root=bytes(h.chain.genesis_validators_root),
+            ),
+        )
+        if int(store_e.finalized_header.beacon.slot) <= anchor_e[0]:
+            raise AssertionError("(e) the light client's finalized header did not advance")
+        e_out = {
+            "validators": CHAIN_HARNESS_VALIDATORS,
+            "anchor_slot": anchor_e[0],
+            "blocks_posted": len(blocks_e),
+            "multi_pairings_per_post": pairings,
+            "head_slot": int(chain_e.head_state.slot),
+            "finalized_epoch": int(chain_e.finalized_checkpoint.epoch),
+            "light_client_finalized_slot": int(store_e.finalized_header.beacon.slot),
+        }
+    finally:
+        for srv in servers:
+            srv.stop()
+
+    counts = chain_counts()
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    required = ["sha256_rows", "epoch_sweep", *BLS_KERNELS, "barycentric_eval"]
+    missing = [k for k in required if on_card and counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the API's calls launched no {missing}")
+    out = {
+        "phase": "api_main_path",
+        "backend": bls.backend_name(),
+        "a_node": {
+            "validators": n,
+            "block_slot": slot,
+            "publish_block": code,
+            "tampered_block": [tampered_code, tampered_msg],
+            "attestations": [posted[0], posted_bad[0], posted_bad[2].decode(errors="replace")],
+        },
+        "b_reads": {
+            "bytes": {name: len(body) for name, body in bodies.values()},
+            "committee_seats": seated,
+            "attestation_rewards_validators": rewarded,
+            "light_client_update": [update_status, update_body.decode(errors="replace")],
+        },
+        "c_workers": {"served_by": served_by, "forwards": forwards, "respawns": respawns},
+        "d_node_b": d_out,
+        "e_minimal": e_out,
+        "steps_s": steps,
+        "launches_per_step": launches,
+        "launches": counts,
+        "max_memory_allocated_bytes": peak,
+    }
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4483,16 +4950,17 @@ def main(argv=None) -> int:
     # card (phase 7 makes them again inside its counted run)
     blobs = kzg_blobs(np.random.default_rng(args.seed + 29), BLOBS_PER_BLOCK)
     commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
-    transition, signed = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
+    transition, signed, tampered = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
     # a fresh engine on the same setup: phase 7 builds its table in its run
     blob_path = phase_blob_main_path(Kzg(kzg.setup), blobs, signed, types, MainnetEthSpec, args.seed)
     sharded = phase_sharded_main_path(state, kzg, args.seed)
     # phase 6's pre-state (with its keys) upgraded to Electra, on a copy
     electra = phase_electra_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
     # phase 6's pre-state and block through the chain's entry points
-    chain = phase_chain_main_path(
-        state, signed, bytes.fromhex(transition["reps"][0]["root"]), kzg, blobs, types, MainnetEthSpec, sk_of, args.seed, smi
-    )
+    post_root = bytes.fromhex(transition["reps"][0]["root"])
+    chain = phase_chain_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, args.seed, smi)
+    # the same block and its refused copy through the Beacon API over HTTP
+    api = phase_api_main_path(state, signed, tampered, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, smi)
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -4507,6 +4975,7 @@ def main(argv=None) -> int:
                     "launches": main_path["sha256_launches"],
                     "launches_electra": electra["launches"]["sha256_rows"],
                     "launches_chain": chain["launches"]["sha256_rows"],
+                    "launches_api": api["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -4526,6 +4995,7 @@ def main(argv=None) -> int:
                     "launches": bls_path["launches"][name] + blob_path["launches"].get(name, 0),
                     "launches_electra": electra["launches"][name],
                     "launches_chain": chain["launches"][name],
+                    "launches_api": api["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -4587,6 +5057,7 @@ def main(argv=None) -> int:
                     "launches": transition["epoch_sweep_launches"],
                     "launches_electra": electra["epoch_sweep_launches"],
                     "launches_chain": chain["launches"]["epoch_sweep"],
+                    "launches_api": api["launches"]["epoch_sweep"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
@@ -4607,6 +5078,7 @@ def main(argv=None) -> int:
                     "replaces": replaces,
                     "launches": blob_path["launches"][name],
                     "launches_chain": chain["launches"][name],
+                    "launches_api": api["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -4649,6 +5121,7 @@ def main(argv=None) -> int:
                     "replaces": replaces,
                     "launches": launches,
                     "launches_chain": chain["launches"][name],
+                    "launches_api": api["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -4710,6 +5183,7 @@ def main(argv=None) -> int:
                     "replaces": "lighthouse_tpu/ops/bls381_sharded.py:52",
                     "launches": sum(sharded["b_rlc_sum"]["launches"].values()),
                     "launches_chain": chain["launches"]["g1_scalar_mul_wide64"],
+                    "launches_api": api["launches"]["g1_scalar_mul_wide64"],
                     "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
                     "ms": sharded["b_rlc_sum"]["kernels_ms"],
                     "plain_ms": sharded["b_rlc_sum"]["plain_ms"],

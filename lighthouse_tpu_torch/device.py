@@ -11,6 +11,13 @@ dispatch raises.
 
 Batches below the thresholds stay on the host hashlib loop whatever the
 device: that is the JAX package's own size dispatch, not a fallback.
+
+A process forked from one that holds a CUDA context cannot use the card,
+and must not compute a kernel's work on the CPU in its place either. The
+Beacon API's serving workers (``http_api/workers.py``) mark themselves
+with ``mark_forked_worker()`` right after the fork; from then on every
+dispatch raises ``ForkedWorkerDispatch``, which the worker answers by
+forwarding the request to its parent.
 """
 
 from __future__ import annotations
@@ -18,6 +25,17 @@ from __future__ import annotations
 import torch
 
 _default = torch.device("cuda")
+_forked_worker = False
+
+
+class ForkedWorkerDispatch(RuntimeError):
+    """A kernel dispatch in a process marked as a forked worker."""
+
+
+def mark_forked_worker() -> None:
+    """Refuse every later kernel dispatch in this process (a forked child)."""
+    global _forked_worker
+    _forked_worker = True
 
 
 def set_default_device(device: str | torch.device) -> None:
@@ -39,8 +57,13 @@ def _check(dev: torch.device) -> torch.device:
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """`device`, or the default one, checked for a kernel dispatch.
 
-    Raises RuntimeError for a CUDA device when no card is present.
+    Raises RuntimeError for a CUDA device when no card is present, and
+    ForkedWorkerDispatch on any device in a forked worker.
     """
+    if _forked_worker:
+        raise ForkedWorkerDispatch(
+            "kernel dispatch in a forked worker: the request goes to the parent"
+        )
     dev = _check(torch.device(device)) if device is not None else _default
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -55,6 +55,9 @@ def test_card_paths_load_no_yaml():
         "import lighthouse_tpu_torch.types, lighthouse_tpu_torch.state_processing\n"
         "import lighthouse_tpu_torch.fork_choice, lighthouse_tpu_torch.testing.harness\n"
         "import lighthouse_tpu_torch.testing.snappy\n"
+        "import lighthouse_tpu_torch.http_api.workers, lighthouse_tpu_torch.eth2\n"
+        "import lighthouse_tpu_torch.beacon_chain.checkpoint_sync, lighthouse_tpu_torch.light_client\n"
+        "import lighthouse_tpu_torch.beacon_chain.rewards, lighthouse_tpu_torch.metrics.server\n"
         "sys.exit(1 if 'yaml' in sys.modules else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -96,6 +99,36 @@ def test_importing_the_chain_modules_loads_no_jax_or_yaml():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('yaml',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the layer above the chain: the Beacon API, its workers and client, the
+# light client, rewards, checkpoint sync and the helpers they import
+API_MODULES = (
+    "utils/http_server.py", "utils/task_executor.py", "utils/compare_fields.py",
+    "metrics/server.py", "metrics/system_health.py", "metrics/profiler.py",
+    "beacon_chain/timer.py", "beacon_chain/fork_revert.py", "beacon_chain/rewards.py",
+    "light_client/__init__.py", "http_api/columnar.py", "http_api/response_cache.py",
+    "http_api/block_index.py", "http_api/__init__.py", "http_api/workers.py",
+    "eth2/__init__.py", "beacon_chain/checkpoint_sync.py",
+)
+
+
+@pytest.mark.parametrize("path", API_MODULES)
+def test_api_module_loads_no_jax_reference_or_yaml(path):
+    """Each module, imported alone in a fresh interpreter, brings in
+    neither JAX, nor the JAX package, nor `yaml`."""
+    assert not _imports(PKG / path) & set(FORBIDDEN)
+    mod = "lighthouse_tpu_torch." + path[: -len(".py")].replace("/", ".").removesuffix(".__init__")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({mod!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('yaml',)!r})\n"
         "print(bad)\n"
