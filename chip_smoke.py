@@ -145,7 +145,22 @@ each, any failure ends the run with a non-zero exit code:
    harness that finalized, the harness's later blocks POSTed to B (each
    verified on the card) until B's head and finality are the harness's,
    and a light client through the update route. Each step's seconds on a
-   line of its own with the card's name and power limit.
+   line of its own with the card's name and power limit;
+12. the validator client: (a) on the minimal preset (Altair to Deneb at
+   genesis, 64 validators), a harness chain behind ``HttpApiServer``
+   whose execution layer is an ``EngineWatchdog`` over the JWT engine API
+   (``HttpEngineClient`` to a ``MockEngineServer``); the 64 keys as
+   EIP-2335 keystores imported through the keymanager API into a
+   ``ValidatorClient`` over ``BeaconNodeFallback([a closed port, the
+   node])``, which proposes every block, attests, aggregates and sends
+   sync-committee messages over HTTP until the chain finalizes epoch 2;
+   one key deleted through the keymanager API signs nothing after, and a
+   conflicting attestation is refused (``NotSafe``); (b) at 1M
+   validators, a ``BeaconChain`` from phase 6's post-state and block
+   (``from_checkpoint``, the engine API as in (a)) and a VC in-process
+   with every key phases 5–6 minted: one slot's duties, signatures,
+   aggregates and sync messages, all accepted by the node. Each step's
+   seconds on a line of its own with the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -4912,6 +4927,438 @@ def phase_api_main_path(
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the validator client
+# ---------------------------------------------------------------------------
+
+# (a): the minimal harness's validators; the slot after which one key is
+# deleted through the keymanager API (the end of epoch 2, so no duty of
+# the epoch in progress is cached for it); the epoch the chain must
+# finalize (two past genesis) and the slots it may take to get there
+VC_HARNESS_VALIDATORS = 64
+VC_DELETE_AFTER_SLOT = 3 * 8 - 1
+VC_FINALIZED_EPOCH = 2
+VC_MAX_SLOTS = 6 * 8
+# seconds a request of the VC to the node, the engine or the keymanager
+# may take
+VC_REQUEST_TIMEOUT = 300
+
+
+class _PublishLog:
+    """A BeaconNodeInterface that hands every call on to `node` and keeps
+    what each publish returned (the VC itself drops it)."""
+
+    def __init__(self, node):
+        self.node = node
+        self.results = {"block": [], "attestations": [], "aggregates": [], "sync": []}
+
+    def __getattr__(self, name):
+        return getattr(self.node, name)
+
+    def publish_block(self, signed_block):
+        res = self.node.publish_block(signed_block)
+        self.results["block"].append(res)
+        return res
+
+    def publish_attestations(self, attestations):
+        res = self.node.publish_attestations(attestations)
+        self.results["attestations"].append((len(attestations), res))
+        return res
+
+    def publish_aggregates(self, signed_aggregates):
+        res = self.node.publish_aggregates(signed_aggregates)
+        self.results["aggregates"].append((len(signed_aggregates), res))
+        return res
+
+    def publish_sync_committee_messages(self, messages):
+        res = self.node.publish_sync_committee_messages(messages)
+        self.results["sync"].append((len(messages), res))
+        return res
+
+
+def _count_engine_calls(server) -> dict:
+    """Count the JSON-RPC methods a MockEngineServer answers, by name."""
+    counts = {}
+    dispatch = server._dispatch
+
+    def counted(method, params):
+        counts[method] = counts.get(method, 0) + 1
+        return dispatch(method, params)
+
+    server._dispatch = counted
+    return counts
+
+
+def _closed_port() -> int:
+    """A local port nothing listens on."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _keymanager(base: str, method: str, path: str, body, token: str | None) -> tuple:
+    """(status, JSON body) of one keymanager API request."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if token is not None:
+        headers["Authorization"] = f"Bearer {token}"
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=VC_REQUEST_TIMEOUT) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def _engine_stack(types, E, jwt: bytes, servers: list):
+    """A MockEngineServer on 127.0.0.1 serving the port's mock engine, its
+    method counts, and the chain's execution layer: an EngineWatchdog over
+    an HttpEngineClient that signs every request with a JWT."""
+    from lighthouse_tpu_torch.execution_layer import MockExecutionLayer
+    from lighthouse_tpu_torch.execution_layer.http import HttpEngineClient, MockEngineServer
+    from lighthouse_tpu_torch.execution_layer.watchdog import EngineWatchdog
+
+    server = MockEngineServer(MockExecutionLayer(types, E), jwt, types, E).start()
+    servers.append(server)
+    calls = _count_engine_calls(server)
+    client = HttpEngineClient(server.url, jwt, types, timeout=VC_REQUEST_TIMEOUT)
+    return server, calls, EngineWatchdog(client, upcheck_interval=1.0)
+
+
+def _vc_keypairs(state, sk_of: dict) -> list:
+    """The keys of `sk_of` (validator index -> secret) as the VC takes
+    them: the registry's pubkey (decompressed only if used) and the
+    secret."""
+    from types import SimpleNamespace
+
+    from lighthouse_tpu_torch.crypto import bls
+
+    return [
+        SimpleNamespace(pk=bls.PublicKey(bytes(state.validators[i].pubkey)), sk=bls.SecretKey(sk))
+        for i, sk in sorted(sk_of.items())
+    ]
+
+
+def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_keys: dict, seed: int, smi: str) -> dict:
+    """The validator client on the card, with the BLS backend following
+    the device (`cuda`):
+    (a) a VC-driven chain to finality on the minimal preset, every hop over
+        HTTP on 127.0.0.1: a BeaconChainHarness genesis (Altair to Deneb at
+        epoch 0, 64 interop validators) whose execution layer is an
+        EngineWatchdog over an HttpEngineClient, every newPayload,
+        forkchoiceUpdated and getPayload a JSON-RPC request with a JWT to a
+        MockEngineServer serving the port's mock engine; the chain behind
+        HttpApiServer(port=0). The 64 keys written as EIP-2335 keystores
+        and imported through the keymanager API (bearer token) into a
+        ValidatorClient(None, node=BeaconNodeFallback([closed port, the
+        node])), each candidate an HttpBeaconNode. The VC runs every slot:
+        it proposes every block (produce_block, publish_block), attests,
+        aggregates and sends sync-committee messages through the API. After
+        epoch 2 one key is deleted through the keymanager API (its EIP-3076
+        interchange returned); the VC runs on until the chain has finalized
+        epoch 2. Checks: every block the VC's and imported, each payload
+        over the engine API; justified and finalized advance; the watchdog
+        stayed ONLINE; the closed port's candidate offline; the deleted
+        key signed nothing after; a second, conflicting attestation for a
+        slot already signed raises NotSafe and nothing reaches the node;
+    (b) a VC with every key phases 5-6 minted, attesting at 1M validators
+        (mainnet preset) over the in-process LocalBeaconNode: a BeaconChain
+        from phase 6's post-state and block (from_checkpoint over
+        HotColdDB(MemoryStore())), with the engine API as in (a); on_slot of
+        the block's slot + 1: bulk duties from the epoch duty table, every
+        held key with a duty signs through sign_batch under one
+        slashing-protection transaction and publishes, the selected
+        aggregators aggregate, the sync-committee keys sign; the node
+        accepts all of it; if the slot's proposer is held, it proposes
+        through the engine API. (b) is in-process because HttpBeaconNode
+        fetches the whole state as SSZ at every head_state, at least four
+        times a slot (phase 11 (d): ~31 s a fetch at 1M).
+    Each step's seconds on its own line with the card's name and power
+    limit; the kernels each step launched."""
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch import default_device
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
+    from lighthouse_tpu_torch.beacon_chain.chain import BeaconChain
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.key_derivation import validator_keypair_path
+    from lighthouse_tpu_torch.crypto.keystore import Keystore
+    from lighthouse_tpu_torch.eth2 import BeaconNodeHttpClient, HttpBeaconNode
+    from lighthouse_tpu_torch.execution_layer import EngineState
+    from lighthouse_tpu_torch.http_api import HttpApiServer
+    from lighthouse_tpu_torch.metrics import REGISTRY
+    from lighthouse_tpu_torch.state_processing import per_slot_processing
+    from lighthouse_tpu_torch.state_processing.accessors import get_beacon_proposer_index
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+    from lighthouse_tpu_torch.validator_client import LocalBeaconNode, ValidatorClient
+    from lighthouse_tpu_torch.validator_client.beacon_node_fallback import BeaconNodeFallback, CandidateHealth
+    from lighthouse_tpu_torch.validator_client.http_api import KeymanagerServer
+    from lighthouse_tpu_torch.validator_client.slashing_protection import NotSafe
+
+    on_card = default_device().type == "cuda"
+    if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
+    steps, launches = {}, {}
+
+    def step(name, fn):
+        before = chain_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
+        emit({"phase": "vc_step", "step": name, "s": steps[name], "launches": launches[name], "card": smi})
+        return res
+
+    def counter(name: str) -> float:
+        return REGISTRY.counter(name).value()
+
+    rng = np.random.default_rng(seed + 41)
+    jwt = rng.bytes(32)
+    token = rng.bytes(32).hex()
+    spec = mainnet_spec()
+    # prepared outside the counted run: phase 6's post-state, its block
+    T = types.types_for_fork("deneb")
+    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
+    slot_b = int(signed.message.slot)
+    _, post = _import_rep(pre, signed, spec, E)
+    if bytes(post.hash_tree_root()) != post_root:
+        raise AssertionError("(b) the post-state's root is not phase 6's post-state root")
+    servers = []
+
+    # the main path: counts at zero just before, read just after
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_chain_counts()
+    try:
+        # (a) the node, its engine over JWT, the VC over HTTP
+        E_m = MinimalEthSpec
+        T_m = build_types(E_m)
+        spec_a = replace(minimal_spec(), altair_fork_epoch=0, bellatrix_fork_epoch=0, capella_fork_epoch=0, deneb_fork_epoch=0)
+        _, engine_calls, watchdog = _engine_stack(T_m, E_m, jwt, servers)
+        offline0 = counter("execution_engine_offline_transitions_total")
+        h = step(
+            "a_harness_genesis",
+            lambda: BeaconChainHarness(spec_a, E_m, validator_count=VC_HARNESS_VALIDATORS, execution_layer=watchdog),
+        )
+        node_srv = HttpApiServer(h.chain, port=0).start()
+        servers.append(node_srv)
+        password = "phase-12-keystores"
+        # pbkdf2 at c = 2^10 (`_fast_kdf`): the EIP-2335 default (c or
+        # scrypt's n at 2^18) costs ~0.5 s a key in hashlib, and the step
+        # times the VC's import, not the KDF
+        keystores = step(
+            "a_write_keystores",
+            lambda: [
+                Keystore.encrypt(
+                    kp.sk.scalar.to_bytes(32, "big"), password, path=validator_keypair_path(i), kdf="pbkdf2",
+                    pubkey=kp.pk.to_bytes(), _fast_kdf=True,
+                ).to_json()
+                for i, kp in enumerate(h.keypairs)
+            ],
+        )
+        dead = HttpBeaconNode(BeaconNodeHttpClient(f"http://127.0.0.1:{_closed_port()}", timeout=VC_REQUEST_TIMEOUT), T_m)
+        live = HttpBeaconNode(BeaconNodeHttpClient(f"http://127.0.0.1:{node_srv.port}", timeout=VC_REQUEST_TIMEOUT), T_m)
+        fallback = BeaconNodeFallback([dead, live], recheck_interval=3600.0)
+        node_a = _PublishLog(fallback)
+        vc = ValidatorClient(None, [], spec_a, E_m, node=node_a)
+        km = KeymanagerServer(vc, token=token).start()
+        servers.append(km)
+        km_base = f"http://127.0.0.1:{km.port}"
+        body = {"keystores": keystores, "passwords": [password] * len(keystores)}
+        refused = _keymanager(km_base, "POST", "/eth/v1/keystores", body, None)[0]
+        status, imported = step("a_import_keystores", lambda: _keymanager(km_base, "POST", "/eth/v1/keystores", body, token))
+        if refused != 401 or status != 200 or [d["status"] for d in imported["data"]] != ["imported"] * len(keystores):
+            raise AssertionError(f"(a) keystore import: {refused} without the token, {status} {str(imported)[:200]}")
+
+        proposed = {}
+
+        def run_slots(first: int, stop) -> int:
+            slot = first
+            while not stop(slot):
+                slot += 1
+                if slot > VC_MAX_SLOTS:
+                    raise AssertionError(f"(a) no finality by slot {VC_MAX_SLOTS}")
+                h.slot_clock.set_slot(slot)
+                root = vc.on_slot(slot)
+                if root is not None:
+                    if bytes(h.chain.head_root) != bytes(root) or bytes(root) not in h.chain._blocks_by_root:
+                        raise AssertionError(f"(a) the VC's block at slot {slot} is not the head")
+                    proposed[slot] = bytes(root)
+            return slot
+
+        last = step("a_vc_epochs_0_to_2", lambda: run_slots(0, lambda s: s == VC_DELETE_AFTER_SLOT))
+        if sorted(proposed) != list(range(1, last + 1)):
+            raise AssertionError(f"(a) slots without the VC's block: {sorted(set(range(1, last + 1)) - set(proposed))}")
+        victim_index = 0
+        victim = h.keypairs[victim_index].pk.to_bytes()
+        status, deleted = step(
+            "a_delete_keystore", lambda: _keymanager(km_base, "DELETE", "/eth/v1/keystores", {"pubkeys": ["0x" + victim.hex()]}, token)
+        )
+        history = [e for e in json.loads(deleted["slashing_protection"])["data"] if e["pubkey"] == "0x" + victim.hex()]
+        if status != 200 or deleted["data"] != [{"status": "deleted"}] or len(history) != 1 or not history[0]["signed_attestations"]:
+            raise AssertionError(f"(a) the DELETE answered {status} {str(deleted)[:200]}")
+        last = step("a_vc_to_finality", lambda: run_slots(last, lambda s: int(h.chain.finalized_checkpoint.epoch) >= VC_FINALIZED_EPOCH))
+        chain_a = h.chain
+        after = [
+            e for e in vc.store.slashing_db.export_interchange(bytes(chain_a.genesis_validators_root))["data"]
+            if e["pubkey"] == "0x" + victim.hex()
+        ]
+        victim_blocks = [s for s, r in proposed.items() if s > VC_DELETE_AFTER_SLOT and int(chain_a._blocks_by_root[r].message.proposer_index) == victim_index]
+        if (
+            vc.store.signer_for(victim) is not None
+            or after[0]["signed_attestations"] != history[0]["signed_attestations"]
+            or after[0]["signed_blocks"] != history[0]["signed_blocks"]
+            or victim_blocks
+        ):
+            raise AssertionError("(a) the deleted key signed after its DELETE")
+        # a slot after the DELETE may be empty only if the deleted key was
+        # its proposer
+        for s in sorted(set(range(VC_DELETE_AFTER_SLOT + 1, last + 1)) - set(proposed)):
+            st = chain_a.state_for_block_root(proposed[max(p for p in proposed if p < s)]).copy()
+            while int(st.slot) < s:
+                per_slot_processing(st, spec_a, E_m)
+            if get_beacon_proposer_index(st, E_m) != victim_index:
+                raise AssertionError(f"(a) slot {s} has no block, and its proposer's key is held")
+        # a second, conflicting attestation for the last slot signed
+        head_state = chain_a.head_state
+        duties = [d for d in vc.duties_service.attester_duties(last // E_m.SLOTS_PER_EPOCH) if d.slot == last]
+        data = vc.attestation_service._attestation_data(head_state, last, b"\x99" * 32, duties[0].committee_index)
+        pk = bytes(head_state.validators[duties[0].validator_index].pubkey)
+        try:
+            vc.store.sign_attestation(pk, data, head_state, spec_a, E_m)
+            raise AssertionError("(a) a conflicting attestation was signed")
+        except NotSafe as e:
+            not_safe = str(e)
+        published, refusals0 = len(node_a.results["attestations"]), counter("vc_slashing_protection_refusals_total")
+        again = step("a_conflicting_attestations", lambda: vc.attestation_service.attest(last, b"\x99" * 32))
+        refused_again = counter("vc_slashing_protection_refusals_total") - refusals0
+        if again or len(node_a.results["attestations"]) != published or refused_again != len(duties):
+            raise AssertionError(f"(a) conflicting attestations: {len(again)} signed, {refused_again} of {len(duties)} refused")
+        # what the node took, the engine, the fallback
+        statuses = sorted({r for _, r in node_a.results["attestations"]} | {r for _, r in node_a.results["sync"]})
+        if statuses != [200]:
+            raise AssertionError(f"(a) the node answered the VC's publishes with {statuses}")
+        blocks = len(proposed)
+        want_calls = {"engine_forkchoiceUpdatedV3": blocks, "engine_getPayloadV3": blocks, "engine_newPayloadV3": blocks}
+        if any(engine_calls.get(k, 0) != v for k, v in want_calls.items()):
+            raise AssertionError(f"(a) engine calls {engine_calls} for {blocks} blocks")
+        if watchdog.state is not EngineState.ONLINE or counter("execution_engine_offline_transitions_total") != offline0:
+            raise AssertionError("(a) the engine watchdog went offline")
+        health = [c.health for c in fallback.candidates]
+        if health != [CandidateHealth.OFFLINE, CandidateHealth.ONLINE]:
+            raise AssertionError(f"(a) the fallback's candidates: {health}")
+        head_a = chain_a.head_state
+        a_out = {
+            "validators": VC_HARNESS_VALIDATORS,
+            "slots": last,
+            "blocks_proposed_by_vc": blocks,
+            "empty_slots": sorted(set(range(1, last + 1)) - set(proposed)),
+            "justified_epoch": int(head_a.current_justified_checkpoint.epoch),
+            "finalized_epoch": int(chain_a.finalized_checkpoint.epoch),
+            "engine_calls": engine_calls,
+            "watchdog": watchdog.state.value,
+            "fallback": [c.value for c in health],
+            "publishes": {k: len(v) for k, v in node_a.results.items()},
+            "attestations_published": sum(n for n, _ in node_a.results["attestations"]),
+            "aggregates_published": sum(n for n, _ in node_a.results["aggregates"]),
+            "sync_messages_published": sum(n for n, _ in node_a.results["sync"]),
+            "deleted_key_history": {k: len(v) for k, v in history[0].items() if k != "pubkey"},
+            "conflicting": {"not_safe": not_safe, "refused": int(refused_again)},
+        }
+        if a_out["justified_epoch"] <= VC_FINALIZED_EPOCH or a_out["finalized_epoch"] < VC_FINALIZED_EPOCH:
+            raise AssertionError(f"(a) justified {a_out['justified_epoch']}, finalized {a_out['finalized_epoch']}")
+        for srv in list(servers):
+            srv.stop()
+            servers.remove(srv)
+        del h, chain_a, vc, head_a, head_state
+
+        # (b) at 1M: the node from phase 6's post-state, the VC in-process
+        _, engine_calls_b, watchdog_b = _engine_stack(types, E, jwt, servers)
+        clock = ManualSlotClock(genesis_time=int(post.genesis_time), seconds_per_slot=spec.seconds_per_slot)
+        clock.set_slot(slot_b)
+        chain = step(
+            "b_from_checkpoint",
+            lambda: BeaconChain.from_checkpoint(HotColdDB(MemoryStore()), post, signed, spec, E, clock, execution_layer=watchdog_b),
+        )
+        keypairs = step("b_keypairs", lambda: _vc_keypairs(chain.head_state, vc_keys))
+        node_b = _PublishLog(LocalBeaconNode(chain))
+        vc_b = step("b_vc_init", lambda: ValidatorClient(chain, keypairs, spec, E, node=node_b))
+        probe = chain.head_state.copy()
+        per_slot_processing(probe, spec, E)
+        proposer = get_beacon_proposer_index(probe, E)
+        del probe
+        clock.set_slot(slot_b + 1)
+        root_b = step("b_on_slot", lambda: vc_b.on_slot(slot_b + 1))
+        if (root_b is not None) != (proposer in vc_keys):
+            raise AssertionError(f"(b) proposer {proposer} held: {proposer in vc_keys}, proposed: {root_b is not None}")
+        if root_b is not None and (
+            bytes(chain.head_root) != bytes(root_b) or engine_calls_b.get("engine_newPayloadV3", 0) != 1 or engine_calls_b.get("engine_getPayloadV3", 0) != 1
+        ):
+            raise AssertionError(f"(b) the VC's block is not the head, or engine calls {engine_calls_b}")
+        att_results = [r for _, rs in node_b.results["attestations"] for r in rs]
+        agg_results = [r for _, rs in node_b.results["aggregates"] for r in rs]
+        rejected = [type(r).__name__ for r in att_results + agg_results if isinstance(r, Exception)]
+        n_sync = sum(n for n, _ in node_b.results["sync"])
+        sync_members = len(vc_b.sync_committee_service._members)
+        if rejected or not att_results or not agg_results or n_sync != sync_members or n_sync == 0:
+            raise AssertionError(
+                f"(b) attestations {len(att_results)}, aggregates {len(agg_results)}, sync {n_sync}: rejected {rejected[:5]}"
+            )
+        if on_card:
+            missing = [k for k in BLS_KERNELS if launches["b_on_slot"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"(b) on_slot launched no {missing}")
+        b_out = {
+            "validators": len(chain.head_state.validators),
+            "keys_held": len(keypairs),
+            "slot": slot_b + 1,
+            "proposer": proposer,
+            "proposer_held": proposer in vc_keys,
+            "proposed": root_b is not None,
+            "engine_calls": engine_calls_b,
+            "attestations_accepted": len(att_results),
+            "aggregates_accepted": len(agg_results),
+            "sync_messages_accepted": n_sync,
+        }
+    finally:
+        for srv in servers:
+            srv.stop()
+
+    counts = chain_counts()
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    if on_card:
+        for part, names in (("a", [n for n in steps if n.startswith("a_")]), ("b", [n for n in steps if n.startswith("b_")])):
+            got = {k: sum(launches[n].get(k, 0) for n in names) for k in ("epoch_sweep", *BLS_KERNELS)}
+            missing = [k for k, v in got.items() if v <= 0 and (part == "a" or k != "epoch_sweep")]
+            if missing:
+                raise AssertionError(f"({part}) launched no {missing}")
+    out = {
+        "phase": "vc_main_path",
+        "backend": bls.backend_name(),
+        "a_minimal_over_http": a_out,
+        "b_mainnet_in_process": b_out,
+        "steps_s": steps,
+        "launches_per_step": launches,
+        "launches": counts,
+        "max_memory_allocated_bytes": peak,
+    }
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4951,6 +5398,9 @@ def main(argv=None) -> int:
     blobs = kzg_blobs(np.random.default_rng(args.seed + 29), BLOBS_PER_BLOCK)
     commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
     transition, signed, tampered = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
+    # the keys phases 5-6 minted, whose pubkeys are in the registry (phase 9
+    # mints more, into its Electra copy only)
+    vc_keys = dict(sk_of)
     # a fresh engine on the same setup: phase 7 builds its table in its run
     blob_path = phase_blob_main_path(Kzg(kzg.setup), blobs, signed, types, MainnetEthSpec, args.seed)
     sharded = phase_sharded_main_path(state, kzg, args.seed)
@@ -4961,6 +5411,8 @@ def main(argv=None) -> int:
     chain = phase_chain_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, args.seed, smi)
     # the same block and its refused copy through the Beacon API over HTTP
     api = phase_api_main_path(state, signed, tampered, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, smi)
+    # the validator client: (a) to finality over HTTP, (b) phase 6's keys at 1M
+    vc = phase_vc_main_path(state, signed, post_root, types, MainnetEthSpec, vc_keys, args.seed, smi)
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -4976,6 +5428,7 @@ def main(argv=None) -> int:
                     "launches_electra": electra["launches"]["sha256_rows"],
                     "launches_chain": chain["launches"]["sha256_rows"],
                     "launches_api": api["launches"]["sha256_rows"],
+                    "launches_vc": vc["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -4996,6 +5449,7 @@ def main(argv=None) -> int:
                     "launches_electra": electra["launches"][name],
                     "launches_chain": chain["launches"][name],
                     "launches_api": api["launches"][name],
+                    "launches_vc": vc["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -5058,6 +5512,7 @@ def main(argv=None) -> int:
                     "launches_electra": electra["epoch_sweep_launches"],
                     "launches_chain": chain["launches"]["epoch_sweep"],
                     "launches_api": api["launches"]["epoch_sweep"],
+                    "launches_vc": vc["launches"]["epoch_sweep"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
@@ -5079,6 +5534,7 @@ def main(argv=None) -> int:
                     "launches": blob_path["launches"][name],
                     "launches_chain": chain["launches"][name],
                     "launches_api": api["launches"][name],
+                    "launches_vc": vc["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -5122,6 +5578,7 @@ def main(argv=None) -> int:
                     "launches": launches,
                     "launches_chain": chain["launches"][name],
                     "launches_api": api["launches"][name],
+                    "launches_vc": vc["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -5184,6 +5641,7 @@ def main(argv=None) -> int:
                     "launches": sum(sharded["b_rlc_sum"]["launches"].values()),
                     "launches_chain": chain["launches"]["g1_scalar_mul_wide64"],
                     "launches_api": api["launches"]["g1_scalar_mul_wide64"],
+                    "launches_vc": vc["launches"]["g1_scalar_mul_wide64"],
                     "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
                     "ms": sharded["b_rlc_sum"]["kernels_ms"],
                     "plain_ms": sharded["b_rlc_sum"]["plain_ms"],

@@ -806,3 +806,60 @@ def test_minimal_harness_finalizes_on_the_card_with_the_default_backend(cuda):
         assert (h.justified_epoch, h.finalized_epoch, int(h.chain.head_state.slot)) == (3, 2, 32)
     finally:
         bls.set_backend(prev)
+
+
+def test_vc_over_http_with_the_engine_api_on_the_card(cuda):
+    """A short chip_smoke phase 12 (a): the minimal harness (Altair to
+    Deneb at genesis, 64 validators) behind HttpApiServer, its execution
+    layer an EngineWatchdog over the JWT engine API to a MockEngineServer;
+    a ValidatorClient over BeaconNodeFallback([closed port, the node])
+    runs 2 slots. Each block is the VC's, its payload from the engine over
+    the wire, and each import verifies on the card (K4 launched)."""
+    from dataclasses import replace
+
+    from chip_smoke import _closed_port, _engine_stack, _PublishLog
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.eth2 import BeaconNodeHttpClient, HttpBeaconNode
+    from lighthouse_tpu_torch.execution_layer import EngineState
+    from lighthouse_tpu_torch.http_api import HttpApiServer
+    from lighthouse_tpu_torch.types import minimal_spec
+    from lighthouse_tpu_torch.validator_client import ValidatorClient
+    from lighthouse_tpu_torch.validator_client.beacon_node_fallback import BeaconNodeFallback, CandidateHealth
+
+    prev = bls.backend_setting()
+    bls.set_backend(None)
+    servers = []
+    try:
+        assert bls.backend_name() == "cuda"
+        E = MinimalEthSpec
+        T = build_types(E)
+        spec = replace(minimal_spec(), altair_fork_epoch=0, bellatrix_fork_epoch=0, capella_fork_epoch=0, deneb_fork_epoch=0)
+        _, calls, watchdog = _engine_stack(T, E, bytes(range(32)), servers)
+        h = BeaconChainHarness(spec, E, validator_count=64, execution_layer=watchdog)
+        srv = HttpApiServer(h.chain, port=0).start()
+        servers.append(srv)
+        fallback = BeaconNodeFallback(
+            [
+                HttpBeaconNode(BeaconNodeHttpClient(f"http://127.0.0.1:{_closed_port()}", timeout=60), T),
+                HttpBeaconNode(BeaconNodeHttpClient(f"http://127.0.0.1:{srv.port}", timeout=60), T),
+            ],
+            recheck_interval=3600.0,
+        )
+        node = _PublishLog(fallback)
+        vc = ValidatorClient(None, h.keypairs, spec, E, node=node)
+        before = K4.COUNTS["multi_pairing"]
+        for slot in (1, 2):
+            h.slot_clock.set_slot(slot)
+            root = vc.on_slot(slot)
+            assert root is not None and bytes(h.chain.head_root) == bytes(root)
+        torch.cuda.synchronize()
+        assert K4.COUNTS["multi_pairing"] - before >= 2
+        assert calls == {"engine_forkchoiceUpdatedV3": 2, "engine_getPayloadV3": 2, "engine_newPayloadV3": 2}
+        assert {r for _, r in node.results["attestations"] + node.results["sync"]} == {200}
+        assert watchdog.state is EngineState.ONLINE
+        assert [c.health for c in fallback.candidates] == [CandidateHealth.OFFLINE, CandidateHealth.ONLINE]
+    finally:
+        for s in servers:
+            s.stop()
+        bls.set_backend(prev)

@@ -89,6 +89,26 @@ def test_results_identical_across_pool_sizes(monkeypatch):
         assert got == want_sigs, size
 
 
+def test_sign_batch_of_a_vc_slot_equals_sign_at_every_pool_size(monkeypatch):
+    """The validator client's shape at 1M validators: one distinct message
+    a committee, ~64 a slot. Here 64 messages: 62 signed by one key each
+    (per-key ladders) and 2 by 12 keys each (a fixed-base table, sharded
+    over the workers at size 4), in an interleaved order; each signature
+    equals per-key `sign` at pool sizes 0, 1 and 4."""
+    kps = bls.interop_keypairs(24)
+    msgs = [bytes([i]) * 32 for i in range(64)]
+    pairs = [(kps[i % 24].sk, msgs[i]) for i in range(62)]
+    pairs += [(kps[j].sk, msgs[62 + j % 2]) for j in range(24)]
+    order = random.Random(18).sample(range(len(pairs)), len(pairs))
+    sks = [pairs[i][0] for i in order]
+    ms = [pairs[i][1] for i in order]
+    want = [sk.sign(m).to_bytes() for sk, m in zip(sks, ms)]
+    for size in ("0", "1", "4"):
+        monkeypatch.setenv(host_pool.ENV_VAR, size)
+        host_pool.reset_pool()
+        assert [s.to_bytes() for s in bls.sign_batch(sks, ms)] == want, size
+
+
 def test_env_resize_replaces_pool(monkeypatch):
     monkeypatch.setenv(host_pool.ENV_VAR, "2")
     p2 = host_pool.get_pool()

@@ -58,6 +58,9 @@ def test_card_paths_load_no_yaml():
         "import lighthouse_tpu_torch.http_api.workers, lighthouse_tpu_torch.eth2\n"
         "import lighthouse_tpu_torch.beacon_chain.checkpoint_sync, lighthouse_tpu_torch.light_client\n"
         "import lighthouse_tpu_torch.beacon_chain.rewards, lighthouse_tpu_torch.metrics.server\n"
+        "import lighthouse_tpu_torch.validator_client.http_api, lighthouse_tpu_torch.validator_client.beacon_node_fallback\n"
+        "import lighthouse_tpu_torch.execution_layer.http, lighthouse_tpu_torch.execution_layer.watchdog\n"
+        "import lighthouse_tpu_torch.crypto.keystore, lighthouse_tpu_torch.crypto.wallet\n"
         "sys.exit(1 if 'yaml' in sys.modules else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -131,6 +134,38 @@ def test_api_module_loads_no_jax_reference_or_yaml(path):
         f"importlib.import_module({mod!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('yaml',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the validator client and its keys, the engine API over HTTP, the
+# monitoring push; and the golden-vector generator (which writes YAML)
+VC_MODULES = (
+    "execution_layer/auth.py", "execution_layer/http.py", "execution_layer/builder_client.py",
+    "execution_layer/watchdog.py", "crypto/aes.py", "crypto/bip39_words.py", "crypto/bip39.py",
+    "crypto/key_derivation.py", "crypto/keystore.py", "crypto/wallet.py",
+    "validator_client/slashing_protection.py", "validator_client/__init__.py",
+    "validator_client/beacon_node_fallback.py", "validator_client/http_api.py", "metrics/monitoring.py",
+    "testing/golden_gen.py",
+)
+
+
+@pytest.mark.parametrize("path", VC_MODULES)
+def test_vc_module_loads_no_jax_or_reference(path):
+    """Each module, imported alone in a fresh interpreter, brings in
+    neither JAX nor the JAX package; none but the golden generator
+    brings in `yaml`."""
+    assert not _imports(PKG / path) & set(FORBIDDEN)
+    mod = "lighthouse_tpu_torch." + path[: -len(".py")].replace("/", ".").removesuffix(".__init__")
+    banned = FORBIDDEN if path == "testing/golden_gen.py" else FORBIDDEN + ("yaml",)
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{banned!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
