@@ -160,7 +160,23 @@ each, any failure ends the run with a non-zero exit code:
    (``from_checkpoint``, the engine API as in (a)) and a VC in-process
    with every key phases 5–6 minted: one slot's duties, signatures,
    aggregates and sync messages, all accepted by the node. Each step's
-   seconds on a line of its own with the card's name and power limit.
+   seconds on a line of its own with the card's name and power limit;
+13. the node: (a) ``python3 -m lighthouse_tpu_torch --spec minimal bn
+   --validate`` as users start it (16 validators, 3-second slots for 18
+   s), its Beacon API polled every slot: it exits 0 with
+   ``bls_backend=cuda`` and imports at least 4 blocks its VC proposed;
+   (b) on the minimal preset, nodes over TCP (Noise where the
+   ``cryptography`` package is installed; the transport on a line of its
+   own): a harness chain finalized at epoch 2 behind ``NetworkService``
+   and ``HttpApiServer``, a ``ClientBuilder`` node that range-syncs it, one
+   booted from its finalized checkpoint that range-syncs and backfills to
+   genesis, then 4 live slots of blocks and attestations over gossip and
+   a bad block refused by both; (c) at 1M validators, phase 7's sidecars,
+   phase 6's block and phase 12 (b)'s attestations and aggregates gossiped
+   from phase 12 (b)'s node to a node on phase 6's pre-state, which
+   imports the block and accepts them all, and refuses one attestation
+   with another's signature. Each step's seconds and card launches on a
+   line of its own with the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -171,6 +187,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -584,11 +601,50 @@ def bls_scalars(rng: np.random.Generator, n: int, bits: int = 64) -> list[int]:
     return out
 
 
-def bls_g1_points(rng: np.random.Generator, n: int) -> list:
-    """n Jacobian G1 points [k]G1 with seeded k, with Z != 1."""
+# below these sizes host work runs inline, above them on the host pool's
+# forked workers: scalars multiplied, rows hashed
+HOST_POOL_MIN = 1024
+HOST_POOL_ROWS = 1 << 16
+
+
+def _pooled(fn, items: list) -> list:
+    """`fn` over contiguous shards of `items`, concatenated in order: on
+    the host pool's workers for large inputs (pure-Python bigint work, no
+    torch in the children), inline for small ones."""
+    pool = host_pool.get_pool()
+    if len(items) < HOST_POOL_MIN or pool.inline:
+        return fn(items)
+    return [x for part in pool.map(fn, host_pool.shard(items, 4 * pool.size)) for x in part]
+
+
+def _hash_rows(rows: np.ndarray) -> np.ndarray:
+    """hashlib's SHA-256 of each [n, 64] row, in shards on the host pool's
+    workers for large n (the host-lane oracles fold 8M rows at 1M
+    validators)."""
+    pool = host_pool.get_pool()
+    if rows.shape[0] < HOST_POOL_ROWS or pool.inline:
+        return hash_rows_hashlib(rows)
+    return np.concatenate(pool.map(hash_rows_hashlib, np.array_split(rows, 4 * pool.size)))
+
+
+def _g1_points_of(ks: list[int]) -> list:
+    """[k]G1 + G1 for each k, Jacobian (a host pool work unit)."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, G1_GEN, pt_add, pt_mul
 
-    return [pt_add(FQ, pt_mul(FQ, G1_GEN, k), G1_GEN) for k in bls_scalars(rng, n, 255)]
+    return [pt_add(FQ, pt_mul(FQ, G1_GEN, k), G1_GEN) for k in ks]
+
+
+def _g1_gen_affine(sks: list[int]) -> list:
+    """[sk]G1 for each key, affine, one inversion for the shard (a host
+    pool work unit)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, batch_to_affine, g1_gen_mul
+
+    return batch_to_affine(FQ, [g1_gen_mul(sk) for sk in sks])
+
+
+def bls_g1_points(rng: np.random.Generator, n: int) -> list:
+    """n Jacobian G1 points [k]G1 with seeded k, with Z != 1."""
+    return _pooled(_g1_points_of, bls_scalars(rng, n, 255))
 
 
 def bls_g2_points(rng: np.random.Generator, n: int) -> list:
@@ -768,13 +824,13 @@ def _g1_affine_bytes(x: int, y: int) -> bytes:
 def bls_keys(rng: np.random.Generator, count: int):
     """`count` seeded secret keys, their affine public points and their
     compressed pubkeys (one G1 fixed-base multiplication each, one batch
-    inversion for all)."""
-    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, R, batch_to_affine, g1_gen_mul
+    inversion a shard)."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import R
 
     if count == 0:
         return [], [], []
     sks = [s % R or 1 for s in bls_scalars(rng, count, 255)]
-    affs = batch_to_affine(FQ, [g1_gen_mul(sk) for sk in sks])
+    affs = _pooled(_g1_gen_affine, sks)
     return sks, affs, [_g1_affine_bytes(x, y) for x, y in affs]
 
 
@@ -1000,7 +1056,7 @@ def _host_fold(leaves: np.ndarray, limit_chunks: int) -> bytes:
     level = np.zeros((next_pow_of_two(m), 32), dtype=np.uint8)
     level[:m] = leaves
     while level.shape[0] > 1:
-        level = hash_rows_hashlib(level.reshape(-1, 64))
+        level = _hash_rows(level.reshape(-1, 64))
     root = level[0].tobytes()
     for d in range((next_pow_of_two(m) - 1).bit_length(), depth):
         root = hashlib.sha256(root + ZERO_HASHES[d]).digest()
@@ -1024,7 +1080,7 @@ def _validator_roots(validators) -> np.ndarray:
     leaves = np.zeros((n, 8, 32), dtype=np.uint8)
     pk = np.zeros((n, 64), dtype=np.uint8)
     pk[:, :48] = np.frombuffer(b"".join(v.pubkey for v in vs), np.uint8).reshape(n, 48)
-    leaves[:, 0] = hash_rows_hashlib(pk)
+    leaves[:, 0] = _hash_rows(pk)
     leaves[:, 1] = np.frombuffer(
         b"".join(v.withdrawal_credentials for v in vs), np.uint8
     ).reshape(n, 32)
@@ -1043,7 +1099,7 @@ def _validator_roots(validators) -> np.ndarray:
         leaves[:, f, :8] = col.view(np.uint8).reshape(n, 8)
     level = leaves.reshape(-1, 32)
     for _ in range(3):  # 8 field chunks -> 1 root
-        level = hash_rows_hashlib(level.reshape(-1, 64))
+        level = _hash_rows(level.reshape(-1, 64))
     return level
 
 
@@ -1056,7 +1112,7 @@ def _u64_container_roots(values, names) -> np.ndarray:
         leaves[:, f, :8] = col.view(np.uint8).reshape(-1, 8)
     level = leaves.reshape(-1, 32)
     while level.shape[0] > len(values):
-        level = hash_rows_hashlib(level.reshape(-1, 64))
+        level = _hash_rows(level.reshape(-1, 64))
     return level
 
 
@@ -1215,7 +1271,7 @@ def phase_kernel_checks(seed: int) -> dict:
         raise AssertionError("merkle_tree_levels differs from the plain version")
     fold = leaves_np
     while fold.shape[0] > 1:
-        fold = hash_rows_hashlib(fold.reshape(-1, 64))
+        fold = _hash_rows(fold.reshape(-1, 64))
     if not np.array_equal(levels[0][0], fold[0]):
         raise AssertionError("merkle_tree_levels root differs from a hashlib fold")
 
@@ -3911,7 +3967,7 @@ def phase_sharded_kernel_checks(kzg, seed: int) -> dict:
             raise AssertionError(f"merkle_subtree_roots differs from its plain version at {n} leaves (max_abs_err {err})")
         fold = leaves_np
         while fold.shape[0] > 1:
-            fold = hash_rows_hashlib(fold.reshape(-1, 64))
+            fold = _hash_rows(fold.reshape(-1, 64))
         if not np.array_equal(got.cpu().numpy()[0], fold[0]):
             raise AssertionError(f"merkle_subtree_roots differs from a hashlib fold at {n} leaves")
         leaf, threads = k_ms.subtree_plan((n - 1).bit_length())
@@ -4222,6 +4278,29 @@ def reset_chain_counts() -> None:
     k_ms.reset_counts()
 
 
+def _stepper(tag: str, smi: str):
+    """A phase's step timer: `step(name, fn, detail=None)` runs `fn`,
+    keeps its seconds (after a card sync) in `steps` and the kernels it
+    launched in `launches`, and prints both on a `tag` line with the
+    card's name and power limit, with `detail()`'s record where given."""
+    steps, launches, details = {}, {}, {}
+
+    def step(name, fn, detail=None):
+        before = chain_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
+        details[name] = detail() if detail is not None else None
+        line = {"phase": tag, "step": name, "s": steps[name], "launches": launches[name], "card": smi}
+        emit(line | ({"detail": details[name]} if details[name] is not None else {}))
+        return res
+
+    return steps, launches, details, step
+
+
 def _verdicts(results) -> list:
     return [type(r).__name__ if isinstance(r, Exception) else None for r in results]
 
@@ -4301,18 +4380,7 @@ def phase_chain_main_path(
     want_backend = "cuda" if default_device().type == "cuda" else "host"
     if bls.backend_setting() is not None or bls.backend_name() != want_backend:
         raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r}), not {want_backend!r}")
-    steps, launches = {}, {}
-
-    def step(name, fn):
-        before = chain_counts()
-        t0 = time.perf_counter()
-        res = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - t0
-        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
-        emit({"phase": "chain_step", "step": name, "s": steps[name], "launches": launches[name], "card": smi})
-        return res
+    steps, launches, _, step = _stepper("chain_step", smi)
 
     # prepared outside the counted run: the blob sidecars (phase 7's), the
     # anchor (a copy of phase 6's pre-state)
@@ -4597,18 +4665,7 @@ def phase_api_main_path(
     on_card = default_device().type == "cuda"
     if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
         raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
-    steps, launches = {}, {}
-
-    def step(name, fn):
-        before = chain_counts()
-        t0 = time.perf_counter()
-        res = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - t0
-        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
-        emit({"phase": "api_step", "step": name, "s": steps[name], "launches": launches[name], "card": smi})
-        return res
+    steps, launches, _, step = _stepper("api_step", smi)
 
     # prepared outside the counted run: both blocks' sidecars, the anchor
     T = types.types_for_fork("deneb")
@@ -4951,6 +5008,8 @@ class _PublishLog:
     def __init__(self, node):
         self.node = node
         self.results = {"block": [], "attestations": [], "aggregates": [], "sync": []}
+        # what the VC published, for phase 13 to gossip again
+        self.sent = {"attestations": [], "aggregates": []}
 
     def __getattr__(self, name):
         return getattr(self.node, name)
@@ -4963,11 +5022,13 @@ class _PublishLog:
     def publish_attestations(self, attestations):
         res = self.node.publish_attestations(attestations)
         self.results["attestations"].append((len(attestations), res))
+        self.sent["attestations"].extend(attestations)
         return res
 
     def publish_aggregates(self, signed_aggregates):
         res = self.node.publish_aggregates(signed_aggregates)
         self.results["aggregates"].append((len(signed_aggregates), res))
+        self.sent["aggregates"].extend(signed_aggregates)
         return res
 
     def publish_sync_committee_messages(self, messages):
@@ -5046,7 +5107,7 @@ def _vc_keypairs(state, sk_of: dict) -> list:
     ]
 
 
-def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_keys: dict, seed: int, smi: str) -> dict:
+def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_keys: dict, seed: int, smi: str) -> tuple[dict, dict]:
     """The validator client on the card, with the BLS backend following
     the device (`cuda`):
     (a) a VC-driven chain to finality on the minimal preset, every hop over
@@ -5081,7 +5142,9 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
         fetches the whole state as SSZ at every head_state, at least four
         times a slot (phase 11 (d): ~31 s a fetch at 1M).
     Each step's seconds on its own line with the card's name and power
-    limit; the kernels each step launched."""
+    limit; the kernels each step launched. Returns the record and (b)'s
+    node: its chain, and the attestations and aggregates the VC published
+    (phase 13 gossips them)."""
     from dataclasses import replace
 
     from lighthouse_tpu_torch import default_device
@@ -5108,18 +5171,7 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
     on_card = default_device().type == "cuda"
     if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
         raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
-    steps, launches = {}, {}
-
-    def step(name, fn):
-        before = chain_counts()
-        t0 = time.perf_counter()
-        res = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - t0
-        launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
-        emit({"phase": "vc_step", "step": name, "s": steps[name], "launches": launches[name], "card": smi})
-        return res
+    steps, launches, _, step = _stepper("vc_step", smi)
 
     def counter(name: str) -> float:
         return REGISTRY.counter(name).value()
@@ -5356,6 +5408,529 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
         "max_memory_allocated_bytes": peak,
     }
     emit(out)
+    return out, {"chain": chain, "attestations": list(node_b.sent["attestations"]), "aggregates": list(node_b.sent["aggregates"])}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the node
+# ---------------------------------------------------------------------------
+
+NODE_BN_SECONDS_PER_SLOT = 3
+NODE_BN_RUN_FOR = 18
+NODE_BN_MIN_BLOCKS = 4
+NODE_HARNESS_VALIDATORS = 64
+NODE_HARNESS_SLOTS = 32
+NODE_LIVE_SLOTS = 4
+# seconds a wait on another node may take before the phase fails
+NODE_WAIT = 600
+
+
+def _wait_for(cond, what: str, timeout: float = NODE_WAIT) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.02)
+
+
+class _ChainLog:
+    """Wraps a chain's gossip entry points on the instance and keeps each
+    call's outcome in order: per attestation, aggregate, block and sidecar
+    call, the exception it gave or None. Each attestation batch also keeps
+    its length, its seconds in the chain, and the attestations still
+    waiting in the node `processor`'s lane and the batches waiting for a
+    worker when it was drained."""
+
+    def __init__(self, chain, processor):
+        from lighthouse_tpu_torch.beacon_processor import WorkType
+
+        self.attestations, self.aggregates, self.blocks, self.sidecars = [], [], [], []
+        self.batches = []  # (length, seconds, lane depth, hand-off depth)
+        batch = chain.process_attestation_batch
+        lane = processor._queues.by_type[WorkType.GOSSIP_ATTESTATION]
+
+        def process_attestation_batch(atts, *args, **kwargs):
+            depth = (len(lane), processor._work.qsize())
+            t0 = time.perf_counter()
+            try:
+                res = batch(atts, *args, **kwargs)
+            except Exception as e:
+                self.attestations.extend([e] * len(atts))
+                raise
+            finally:
+                self.batches.append((len(atts), time.perf_counter() - t0, *depth))
+            self.attestations.extend(r if isinstance(r, Exception) else None for r in res)
+            return res
+
+        chain.process_attestation_batch = process_attestation_batch
+        for name, out in (("process_aggregate", self.aggregates), ("process_block", self.blocks), ("process_blob_sidecars", self.sidecars)):
+            setattr(chain, name, self._logged(getattr(chain, name), out))
+
+    @staticmethod
+    def _logged(fn, out: list):
+        def call(*args, **kwargs):
+            try:
+                res = fn(*args, **kwargs)
+            except Exception as e:
+                out.append(e)
+                raise
+            out.append(None)
+            return res
+
+        return call
+
+    def batch_summary(self) -> dict:
+        """The attestation batches so far: how many, their lengths, their
+        seconds in the chain, and the depths at each drain."""
+        got = self.batches
+        if not got:
+            return {"batches": 0}
+        sizes, lanes, handoffs = ([b[i] for b in got] for i in (0, 2, 3))
+        return {
+            "batches": len(got),
+            "batch_len": {"min": min(sizes), "median": float(np.median(sizes)), "max": max(sizes), "mean": sum(sizes) / len(got)},
+            "batch_len_counts": {str(k): sizes.count(k) for k in sorted(set(sizes))},
+            "in_chain_s": sum(b[1] for b in got),
+            "lane_depth_at_drain": {"median": float(np.median(lanes)), "max": max(lanes)},
+            "handoff_depth_at_drain": {"median": float(np.median(handoffs)), "max": max(handoffs)},
+        }
+
+
+class _BnProcess:
+    """(a): `python3 -m lighthouse_tpu_torch --spec minimal bn --validate`
+    as a user starts it (no --bls-backend, no --device on the card), its
+    Beacon API polled every slot from a thread while the phase goes on;
+    `result()` waits for it and reads its log for the backend, the
+    proposals and tracebacks."""
+
+    def __init__(self, device: str):
+        import threading
+
+        self.device = device
+        self.port = _closed_port()
+        self.cmd = [
+            sys.executable, "-m", "lighthouse_tpu_torch", "--spec", "minimal", "bn", "--validate",
+            "--seconds-per-slot", str(NODE_BN_SECONDS_PER_SLOT), "--run-for", str(NODE_BN_RUN_FOR),
+            "--http-port", str(self.port), "--network-port", "0",
+        ]
+        if device == "cpu":
+            self.cmd += ["--device", "cpu"]  # a rehearsal without a card
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        self.lines: list[str] = []
+        self.polls: list[dict] = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.t_end = None  # when its output ended: the process's own seconds
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.poller = threading.Thread(target=self._poll, daemon=True)
+        self.reader.start()
+        self.poller.start()
+
+    def _read(self):
+        self.lines.extend(self.proc.stdout)
+        self.t_end = time.perf_counter()
+
+    def _get(self, path: str):
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}", timeout=2) as r:
+            return json.loads(r.read())["data"]
+
+    def _poll(self):
+        while self.proc.poll() is None:
+            try:
+                syncing, head = self._get("/eth/v1/node/syncing"), self._get("/eth/v1/beacon/headers/head")
+                self.polls.append(
+                    {
+                        "s": time.perf_counter() - self.t0,
+                        "head_slot": int(head["header"]["message"]["slot"]),
+                        "sync_distance": int(syncing["sync_distance"]),
+                    }
+                )
+            except (OSError, ValueError, KeyError):
+                pass  # not serving yet, or shutting down
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                self.proc.wait(timeout=NODE_BN_SECONDS_PER_SLOT)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=NODE_WAIT)
+        finally:
+            self.stop()
+        self.poller.join(timeout=30)
+        self.reader.join(timeout=30)
+        seconds = (self.t_end or time.perf_counter()) - self.t0
+        lines = self.lines
+        up = [ln for ln in lines if "beacon node up" in ln]
+        proposed = [ln for ln in lines if "slot processed" in ln and "proposed=True" in ln]
+        want = "cuda" if self.device == "cuda" else "host"
+        heads = [p["head_slot"] for p in self.polls]
+        tail = "".join(lines[-40:])
+        if rc != 0 or "Traceback" in "".join(lines):
+            raise AssertionError(f"(a) bn exited {rc}:\n{tail}")
+        if len(up) != 1 or f"bls_backend={want}" not in up[0]:
+            raise AssertionError(f"(a) the node came up with {up}, not bls_backend={want}")
+        if len(proposed) < NODE_BN_MIN_BLOCKS:
+            raise AssertionError(f"(a) {len(proposed)} blocks proposed and imported, fewer than {NODE_BN_MIN_BLOCKS}:\n{tail}")
+        if len(heads) < 2 or heads != sorted(heads) or heads[-1] <= heads[0] or heads[-1] < NODE_BN_MIN_BLOCKS - 1:
+            raise AssertionError(f"(a) head slots over the polls {heads}")
+        return {
+            "command": " ".join(self.cmd[1:]),
+            "exit_code": rc,
+            "s": seconds,
+            "up_line": up[0].strip(),
+            "blocks_proposed_and_imported": len(proposed),
+            "polls": self.polls,
+        }
+
+
+def phase_node_main_path(
+    pre, signed_bytes: bytes, post_root: bytes, kzg, blobs: list[bytes], types, E, vc_node: dict, smi: str
+) -> dict:
+    """The beacon node, started as users start it, and nodes that sync and
+    gossip with each other over TCP on 127.0.0.1, with the BLS backend
+    following the device (`cuda` on the card):
+    (a) `python3 -m lighthouse_tpu_torch --spec minimal bn --validate`, 16
+        interop validators, 3-second slots for 18 s, a subprocess that runs
+        while (c) does: it exits 0, logs bls_backend=cuda, imports at least
+        4 blocks its VC proposed with the head slot rising over the API
+        polls, and prints no traceback;
+    (b) minimal preset with Altair from genesis (its epochs run the sweep),
+        64 interop validators: node A a BeaconChainHarness
+        chain (extend_chain(32): justified 3, finalized 2) behind
+        NetworkService and HttpApiServer; node B a ClientBuilder node with
+        the same keys whose SyncService range-syncs A's 32 slots; node D a
+        ClientBuilder node booted from A's finalized checkpoint over A's
+        API, range-synced to A's head and backfilled to genesis through
+        blocks_by_range (its proposer signatures in one batch); then 4 live
+        slots, each block and its attestations made by A's harness and
+        published by A's network, imported by B and D from gossip; a block
+        with one attestation signature swapped, published by A, refused by
+        B and D with their heads unmoved and A's score with them lowered;
+        A, B and D end on one head and one finalized checkpoint;
+    (c) mainnet, 1M validators: node A phase 12 (b)'s chain (phase 6's
+        block and post-state) behind a NetworkService; node B a BeaconChain
+        on a copy of phase 6's pre-state (as phase 10 (b)) with its own
+        NetworkService and no sync service. A publishes the six blob
+        sidecars and phase 6's block: B's DA gate verifies the sidecars on
+        the card and B imports the block from gossip (its head phase 6's
+        block, its state root the post-state's); then A publishes every
+        attestation but one and every aggregate phase 12 (b)'s VC made,
+        each attestation on its subnet, all accepted by B, and last the
+        one left out carrying another's signature, the only one refused,
+        which lowers A's score with B.
+    Each step's seconds and card launches on a line of its own with the
+    card's name and power limit."""
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch import default_device
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
+    from lighthouse_tpu_torch.beacon_chain.attestation_verification import AttestationError
+    from lighthouse_tpu_torch.beacon_chain.chain import BeaconChain, BlockError
+    from lighthouse_tpu_torch.client import ClientBuilder, ClientConfig
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.http_api import HttpApiServer
+    from lighthouse_tpu_torch.network import NetworkService
+    from lighthouse_tpu_torch.ssz.merkle_proof import build_blob_sidecars
+    from lighthouse_tpu_torch.state_processing import per_slot_processing
+    from lighthouse_tpu_torch.state_processing.accessors import get_beacon_proposer_index
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    device = default_device().type
+    on_card = device == "cuda"
+    if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
+    # Noise XX where its primitives are installed, plain TCP where not
+    noise = importlib.util.find_spec("cryptography") is not None
+    emit({"phase": "node_transport", "transport": "noise" if noise else "tcp"})
+
+    def transport():
+        from lighthouse_tpu_torch.network.noise import NoiseTransport
+
+        return NoiseTransport() if noise else None
+
+    steps, launches, details, step = _stepper("node_step", smi)
+
+    # prepared outside the counted run: phase 7's sidecars, the anchor (a
+    # copy of phase 6's pre-state), the tampered attestation
+    T = types.types_for_fork("deneb")
+    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
+    root_c = signed.message.hash_tree_root()
+    slot_c = int(signed.message.slot)
+    sidecars = build_blob_sidecars(signed, blobs, kzg, E)
+    anchor = pre.copy()
+    spec = mainnet_spec()
+    chain_a_c = vc_node["chain"]
+    # the VC's attestations but its last, which goes out last with the
+    # first one's signature: a point on the curve, wrong for its signer
+    # (a validator B has not seen attest)
+    atts_c, aggs_c = vc_node["attestations"][:-1], vc_node["aggregates"]
+    last_att = vc_node["attestations"][-1]
+    tampered_att = types.Attestation(aggregation_bits=last_att.aggregation_bits, data=last_att.data, signature=atts_c[0].signature)
+    if bytes(chain_a_c.head_root) != root_c:
+        raise AssertionError("(c) node A's head is not phase 6's block")
+
+    services = []
+    # the main path: counts at zero just before, read just after
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_chain_counts()
+    try:
+        # (b) three nodes over TCP on the minimal preset, Altair from genesis
+        E_m = MinimalEthSpec
+        spec_m = replace(minimal_spec(), altair_fork_epoch=0)
+        h = step("b_a_harness", lambda: BeaconChainHarness(spec_m, E_m, validator_count=NODE_HARNESS_VALIDATORS))
+        step("b_a_extend_chain", lambda: h.extend_chain(NODE_HARNESS_SLOTS))
+        if (h.justified_epoch, h.finalized_epoch) != (3, 2):
+            raise AssertionError(f"(b) node A justified {h.justified_epoch}, finalized {h.finalized_epoch}")
+        chain_a = h.chain
+        na = NetworkService(chain_a, port=0, transport=transport()).start()
+        services.append(na)
+        api = HttpApiServer(chain_a, port=0).start()
+        services.append(api)
+
+        def client(**kw):
+            cfg = ClientConfig(
+                spec=h.spec, E=E_m, validator_count=NODE_HARNESS_VALIDATORS, keypairs=h.keypairs,
+                manual_slot_clock=True, http_port=None, network_port=0, noise=noise, **kw,
+            )
+            c = ClientBuilder(cfg).build().start()
+            services.append(c)
+            c.slot_clock.set_slot(NODE_HARNESS_SLOTS)
+            return c
+
+        b = step("b_b_build", client)
+        log_b = _ChainLog(b.chain, b.network.processor)
+
+        def range_sync(c, who):
+            c.network.connect("127.0.0.1", na.port)
+            _wait_for(lambda: bytes(c.chain.head_root) == bytes(chain_a.head_root), f"{who}'s range sync")
+
+        step("b_b_range_sync", lambda: range_sync(b, "B"))
+        d = step("b_d_checkpoint_boot", lambda: client(checkpoint_sync_url=f"http://127.0.0.1:{api.port}"))
+        log_d = _ChainLog(d.chain, d.network.processor)
+        anchor_d = d.chain._blocks_by_root[d.chain.genesis_block_root]
+        if bytes(d.chain.genesis_block_root) != bytes(chain_a.finalized_checkpoint.root):
+            raise AssertionError("(b) node D is not anchored on A's finalized checkpoint")
+        step("b_d_range_sync", lambda: range_sync(d, "D"))
+        peer_d = d.network.peers.get(f"127.0.0.1:{na.port}")
+        stored = step("b_d_backfill", lambda: d.network.sync.backfill(peer_d))
+        r, oldest = bytes(anchor_d.message.parent_root), None
+        while (blk := d.chain.store.get_block(r)) is not None:
+            oldest, r = blk, bytes(blk.message.parent_root)
+        walk = chain_a._blocks_by_root[bytes(chain_a.head_root)]
+        while int(walk.message.slot) > 1:
+            walk = chain_a._blocks_by_root[bytes(walk.message.parent_root)]
+        genesis_root = bytes(walk.message.parent_root)
+        if oldest is None or int(oldest.message.slot) != 1 or r != genesis_root or stored != int(anchor_d.message.slot) - 1:
+            raise AssertionError(f"(b) D backfilled {stored} blocks, its oldest {None if oldest is None else int(oldest.message.slot)}")
+
+        def live_slot(slot):
+            for c in (b, d):
+                c.slot_clock.set_slot(slot)
+            root, blk = h.add_block_at_slot(slot)
+            na.publish_block(blk)
+            _wait_for(lambda: bytes(b.chain.head_root) == bytes(root) and bytes(d.chain.head_root) == bytes(root), f"slot {slot}'s block on B and D")
+            atts = h.make_unaggregated_attestations(slot, root)
+            n_b, n_d = len(log_b.attestations), len(log_d.attestations)
+            if _verdicts(chain_a.process_attestation_batch(atts)) != [None] * len(atts):
+                raise AssertionError(f"(b) A refused its own attestations at slot {slot}")
+            for att in atts:
+                na.publish_attestation(att)
+            _wait_for(lambda: len(log_b.attestations) >= n_b + len(atts) and len(log_d.attestations) >= n_d + len(atts), f"slot {slot}'s attestations on B and D")
+            got = log_b.attestations[n_b:] + log_d.attestations[n_d:]
+            if any(v is not None for v in got):
+                raise AssertionError(f"(b) slot {slot}'s attestations refused: {[repr(v) for v in got if v is not None][:3]}")
+            return len(atts)
+
+        live = step(
+            "b_live_slots",
+            lambda: [live_slot(s) for s in range(NODE_HARNESS_SLOTS + 1, NODE_HARNESS_SLOTS + 1 + NODE_LIVE_SLOTS)],
+            detail=lambda: {"b": log_b.batch_summary(), "d": log_d.batch_summary()},
+        )
+        head = bytes(chain_a.head_root)
+        # a block whose first attestation carries a valid signature over another message
+        slot_bad = NODE_HARNESS_SLOTS + NODE_LIVE_SLOTS + 1
+        for clock in (h.slot_clock, b.slot_clock, d.slot_clock):
+            clock.set_slot(slot_bad)
+        proposer_state = chain_a.head_state.copy()
+        per_slot_processing(proposer_state, h.spec, E_m)
+        proposer = get_beacon_proposer_index(proposer_state, E_m)
+        block_bad, _ = chain_a.produce_block_on_state(
+            slot_bad, h.randao_reveal(proposer, slot_bad, proposer_state),
+            sync_aggregate_fn=lambda st: h.make_sync_aggregate(st, slot_bad, head),
+        )
+        att0 = block_bad.body.attestations[0]
+        other = h.make_attestations(int(att0.data.slot), b"\x99" * 32)[int(att0.data.index)]
+        block_bad.body.attestations[0] = chain_a.types.Attestation(aggregation_bits=att0.aggregation_bits, data=att0.data, signature=other.signature)
+        bad = h.sign_block(block_bad, proposer_state)
+        a_id = f"127.0.0.1:{na.port}"
+        scores = [c.network.peers.get(a_id).score for c in (b, d)]
+        n_blocks = (len(log_b.blocks), len(log_d.blocks))
+
+        def publish_bad():
+            na.publish_block(bad)
+            _wait_for(lambda: len(log_b.blocks) > n_blocks[0] and len(log_d.blocks) > n_blocks[1], "B's and D's verdicts on the bad block")
+
+        step("b_bad_block", publish_bad)
+        refusals = [log_b.blocks[-1], log_d.blocks[-1]]
+        scores_after = [c.network.peers.get(a_id).score for c in (b, d)]
+        if not all(isinstance(e, BlockError) for e in refusals) or any(bytes(c.chain.head_root) != head for c in (b, d)):
+            raise AssertionError(f"(b) the bad block: {refusals}")
+        if not all(after < before for before, after in zip(scores, scores_after)):
+            raise AssertionError(f"(b) A's score with B and D {scores} -> {scores_after}")
+        finalized = {bytes(c.finalized_checkpoint.root) + int(c.finalized_checkpoint.epoch).to_bytes(8, "little") for c in (chain_a, b.chain, d.chain)}
+        if {bytes(c.head_root) for c in (chain_a, b.chain, d.chain)} != {head} or len(finalized) != 1:
+            raise AssertionError("(b) A, B and D do not share one head and one finalized checkpoint")
+        b_out = {
+            "validators": NODE_HARNESS_VALIDATORS,
+            "head_slot": int(chain_a.head_state.slot),
+            "justified_epoch": int(chain_a.justified_checkpoint.epoch),
+            "finalized_epoch": int(chain_a.finalized_checkpoint.epoch),
+            "d_anchor_slot": int(anchor_d.message.slot),
+            "d_backfilled": stored,
+            "d_oldest_slot": int(oldest.message.slot),
+            "live_attestations": live,
+            "bad_block": [str(e)[:120] for e in refusals],
+            "a_score_with_b_and_d": [scores, scores_after],
+            "transport": "noise" if noise else "tcp",
+        }
+        for svc in reversed(services):
+            svc.stop()
+        services.clear()
+        del h, chain_a, b, d
+
+        # (a) the node as users start it, in its own process while (c) runs:
+        # its launches are that process's, not counted here
+        bn = _BnProcess(device)
+        services.append(bn)
+
+        # (c) phase 6's block, its blobs and phase 12 (b)'s attestations over gossip at 1M
+        na_c = NetworkService(chain_a_c, port=0, transport=transport()).start()
+        services.append(na_c)
+        clock = ManualSlotClock(genesis_time=int(anchor.genesis_time), seconds_per_slot=spec.seconds_per_slot)
+        clock.set_slot(slot_c)
+        chain_b = step(
+            "c_b_chain_init",
+            lambda: BeaconChain(HotColdDB(MemoryStore()), genesis_state=anchor, spec=spec, E=E, slot_clock=clock, kzg=kzg),
+        )
+        nb_c = NetworkService(chain_b, port=0, transport=transport(), sync_service_interval=None).start()
+        services.append(nb_c)
+        log_c = _ChainLog(chain_b, nb_c.processor)
+        a_id = f"127.0.0.1:{na_c.port}"
+        nb_c.connect("127.0.0.1", na_c.port)
+        # A publishes to the peers it knows to subscribe to each topic
+        topics = [na_c.topic_blob_sidecar, na_c.topic_block, na_c.topic_aggregate, *na_c.attestation_topics.values()]
+        b_id = f"127.0.0.1:{nb_c.port}"
+        _wait_for(lambda: all(b_id in na_c.gossip.behaviour._subscribed_peers(t) for t in topics), "B's subscriptions at A")
+
+        def gossip_sidecars():
+            for sc in sidecars:
+                na_c.publish_blob_sidecar(sc)
+            _wait_for(lambda: len(log_c.sidecars) >= len(sidecars), "B's sidecar verdicts")
+
+        step("c_gossip_sidecars", gossip_sidecars)
+        if log_c.sidecars != [None] * len(sidecars):
+            raise AssertionError(f"(c) B refused sidecars: {log_c.sidecars}")
+
+        def gossip_block():
+            na_c.publish_block(signed)
+            _wait_for(lambda: bytes(chain_b.head_root) == root_c or log_c.blocks, "B's import of phase 6's block")
+
+        step("c_gossip_block", gossip_block)
+        if bytes(chain_b.head_root) != root_c or log_c.blocks != [None]:
+            raise AssertionError(f"(c) B's head is not phase 6's block: {log_c.blocks}")
+        if bytes(step("c_b_head_state_root", lambda: chain_b.head_state.hash_tree_root())) != post_root:
+            raise AssertionError("(c) B's head state root is not phase 6's post-state root")
+        stored_blobs = chain_b.store.get_blob_sidecars(root_c)
+        if stored_blobs is None or len(stored_blobs) != len(blobs):
+            raise AssertionError("(c) the block's blob sidecars were not stored with it")
+        clock.set_slot(slot_c + 1)
+
+        def gossip_attestations():
+            for att in atts_c:
+                na_c.publish_attestation(att)
+            _wait_for(lambda: len(log_c.attestations) >= len(atts_c), "B's attestation verdicts")
+
+        step("c_gossip_attestations", gossip_attestations, detail=log_c.batch_summary)
+        refused = [repr(v) for v in log_c.attestations if v is not None]
+        if len(log_c.attestations) != len(atts_c) or refused:
+            raise AssertionError(f"(c) {len(log_c.attestations)} attestation verdicts, refused {refused[:3]}")
+
+        def gossip_aggregates():
+            for agg in aggs_c:
+                na_c.publish_aggregate(agg)
+            _wait_for(lambda: len(log_c.aggregates) >= len(aggs_c), "B's aggregate verdicts")
+
+        step("c_gossip_aggregates", gossip_aggregates)
+        refused = [repr(v) for v in log_c.aggregates if v is not None]
+        if len(log_c.aggregates) != len(aggs_c) or refused:
+            raise AssertionError(f"(c) {len(log_c.aggregates)} aggregate verdicts, refused {refused[:3]}")
+        score = nb_c.peers.get(a_id).score
+
+        def gossip_tampered():
+            na_c.publish_attestation(tampered_att)
+            _wait_for(lambda: len(log_c.attestations) > len(atts_c), "B's verdict on the tampered attestation")
+
+        step("c_gossip_tampered_attestation", gossip_tampered)
+        last = log_c.attestations[-1]
+        score_after = nb_c.peers.get(a_id).score
+        if len(log_c.attestations) != len(atts_c) + 1 or not isinstance(last, AttestationError) or "signature" not in str(last):
+            raise AssertionError(f"(c) the tampered attestation: {last!r}")
+        if not score_after < score:
+            raise AssertionError(f"(c) A's score with B {score} -> {score_after}")
+        a_out = bn.result()
+        steps["a_bn"], launches["a_bn"] = a_out["s"], {}
+        emit({"phase": "node_step", "step": "a_bn", "s": a_out["s"], "launches": "in its own process", "card": smi})
+        c_out = {
+            "validators": len(anchor.validators),
+            "block_slot": slot_c,
+            "sidecars": len(sidecars),
+            "post_state_root": post_root.hex(),
+            "attestations_accepted": len(atts_c),
+            "aggregates_accepted": len(aggs_c),
+            "tampered_attestation": str(last),
+            "a_score_with_b": [score, score_after],
+            "attestations_per_s": len(atts_c) / steps["c_gossip_attestations"],
+            "attestation_batches": details["c_gossip_attestations"],
+        }
+    finally:
+        for svc in reversed(services):
+            svc.stop()
+
+    counts = chain_counts()
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    if on_card:
+        for part, names, required in (
+            ("b", [n for n in steps if n.startswith("b_")], ["epoch_sweep", *BLS_KERNELS]),
+            ("c", [n for n in steps if n.startswith("c_")], ["epoch_sweep", "sha256_rows", "barycentric_eval", *BLS_KERNELS]),
+        ):
+            got = {k: sum(launches[n].get(k, 0) for n in names) for k in required}
+            missing = [k for k, v in got.items() if v <= 0]
+            if missing:
+                raise AssertionError(f"({part}) launched no {missing}")
+    out = {
+        "phase": "node_main_path",
+        "backend": bls.backend_name(),
+        "a_bn": a_out,
+        "b_minimal_tcp": b_out,
+        "c_mainnet_gossip": c_out,
+        "steps_s": steps,
+        "launches_per_step": launches,
+        "launches": counts,
+        "max_memory_allocated_bytes": peak,
+    }
+    emit(out)
     return out
 
 
@@ -5412,7 +5987,11 @@ def main(argv=None) -> int:
     # the same block and its refused copy through the Beacon API over HTTP
     api = phase_api_main_path(state, signed, tampered, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, smi)
     # the validator client: (a) to finality over HTTP, (b) phase 6's keys at 1M
-    vc = phase_vc_main_path(state, signed, post_root, types, MainnetEthSpec, vc_keys, args.seed, smi)
+    vc, vc_node = phase_vc_main_path(state, signed, post_root, types, MainnetEthSpec, vc_keys, args.seed, smi)
+    # the node: `bn` as users start it, nodes over TCP, phase 12 (b)'s
+    # attestations gossiped at 1M
+    node = phase_node_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, vc_node, smi)
+    del vc_node
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -5429,6 +6008,7 @@ def main(argv=None) -> int:
                     "launches_chain": chain["launches"]["sha256_rows"],
                     "launches_api": api["launches"]["sha256_rows"],
                     "launches_vc": vc["launches"]["sha256_rows"],
+                    "launches_node": node["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -5450,6 +6030,7 @@ def main(argv=None) -> int:
                     "launches_chain": chain["launches"][name],
                     "launches_api": api["launches"][name],
                     "launches_vc": vc["launches"][name],
+                    "launches_node": node["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -5513,6 +6094,7 @@ def main(argv=None) -> int:
                     "launches_chain": chain["launches"]["epoch_sweep"],
                     "launches_api": api["launches"]["epoch_sweep"],
                     "launches_vc": vc["launches"]["epoch_sweep"],
+                    "launches_node": node["launches"]["epoch_sweep"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
@@ -5535,6 +6117,7 @@ def main(argv=None) -> int:
                     "launches_chain": chain["launches"][name],
                     "launches_api": api["launches"][name],
                     "launches_vc": vc["launches"][name],
+                    "launches_node": node["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -5579,6 +6162,7 @@ def main(argv=None) -> int:
                     "launches_chain": chain["launches"][name],
                     "launches_api": api["launches"][name],
                     "launches_vc": vc["launches"][name],
+                    "launches_node": node["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -5642,6 +6226,7 @@ def main(argv=None) -> int:
                     "launches_chain": chain["launches"]["g1_scalar_mul_wide64"],
                     "launches_api": api["launches"]["g1_scalar_mul_wide64"],
                     "launches_vc": vc["launches"]["g1_scalar_mul_wide64"],
+                    "launches_node": node["launches"]["g1_scalar_mul_wide64"],
                     "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
                     "ms": sharded["b_rlc_sum"]["kernels_ms"],
                     "plain_ms": sharded["b_rlc_sum"]["plain_ms"],

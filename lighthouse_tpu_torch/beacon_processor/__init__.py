@@ -309,7 +309,11 @@ class BeaconProcessor:
     def _manager_loop(self):
         while True:
             with self._cv:
-                while not self._queues.__len__() and not self._shutdown:
+                # pop only for an idle worker (lib.rs hands work out only
+                # below max_workers): while every worker is busy the
+                # arrivals wait in their lanes, so the next pop coalesces
+                # them into one batch and takes the highest priority first
+                while (not self._queues.__len__() or not self._idle_workers) and not self._shutdown:
                     self._cv.wait(timeout=0.1)
                 if self._shutdown:
                     # shutdown abandons the backlog EXPLICITLY: stop must
@@ -347,6 +351,7 @@ class BeaconProcessor:
                 kind_depth = len(self._queues.by_type[t])
                 total_depth = len(self._queues)
                 if batch:
+                    self._idle_workers -= 1
                     # inflight marked BEFORE the queue lock drops so drain()
                     # can never observe empty-queues + zero-inflight while a
                     # popped batch is still in the manager's hands
@@ -409,6 +414,9 @@ class BeaconProcessor:
                     set_gauge("beacon_processor_workers_busy", self._busy)
                     self._inflight -= 1
                     self._done_cv.notify_all()
+                with self._cv:
+                    self._idle_workers += 1
+                    self._cv.notify()
 
     # -- lifecycle -------------------------------------------------------------
 

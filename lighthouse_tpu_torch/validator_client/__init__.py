@@ -815,6 +815,11 @@ class BlockService:
         self.E = E
 
     def propose_if_due(self, slot: int):
+        # the genesis block is slot 0's (block_service.rs: no block is
+        # produced at the genesis slot); a clock that starts at genesis
+        # ticks slot 0 first
+        if slot == 0:
+            return None
         duty = self.duties.proposer_duty_at(slot)
         if duty is None:
             return None

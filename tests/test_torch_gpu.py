@@ -863,3 +863,105 @@ def test_vc_over_http_with_the_engine_api_on_the_card(cuda):
         for s in servers:
             s.stop()
         bls.set_backend(prev)
+
+
+def test_node_gossip_between_two_port_nodes_on_the_card(cuda):
+    """Two port nodes on loopback, the BLS backend following the card:
+    node A a minimal harness (64 validators) behind a NetworkService, node
+    B a harness chain behind its own; over 3 slots A makes each block and
+    its attestations and publishes them, and B verifies each gossip block
+    and each attestation batch on the card (K4 launched for each)."""
+    import time
+
+    from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.network import NetworkService
+    from lighthouse_tpu_torch.types import minimal_spec
+
+    def wait(cond, what):
+        deadline = time.monotonic() + 120
+        while not cond():
+            assert time.monotonic() < deadline, what
+            time.sleep(0.01)
+
+    prev = bls.backend_setting()
+    bls.set_backend(None)
+    services = []
+    try:
+        assert bls.backend_name() == "cuda"
+        a = BeaconChainHarness(minimal_spec(), MinimalEthSpec, validator_count=64)
+        b = BeaconChainHarness(minimal_spec(), MinimalEthSpec, validator_count=64)
+        na, nb = NetworkService(a.chain).start(), NetworkService(b.chain).start()
+        services += [na, nb]
+        nb.connect("127.0.0.1", na.port)
+        wait(lambda: f"127.0.0.1:{nb.port}" in na.gossip.behaviour._subscribed_peers(na.topic_block), "B's subscription at A")
+        verdicts = []
+        batch = b.chain.process_attestation_batch
+
+        def logged(atts):
+            res = batch(atts)
+            verdicts.extend(isinstance(r, Exception) for r in res)
+            return res
+
+        b.chain.process_attestation_batch = logged
+        for slot in (1, 2, 3):
+            b.slot_clock.set_slot(slot)
+            root, signed = a.add_block_at_slot(slot)
+            torch.cuda.synchronize()
+            k4 = K4.COUNTS["multi_pairing"]
+            na.publish_block(signed)
+            wait(lambda: bytes(b.chain.head_root) == bytes(root), f"slot {slot}'s block on B")
+            torch.cuda.synchronize()
+            assert K4.COUNTS["multi_pairing"] > k4
+            atts = a.make_unaggregated_attestations(slot, root)
+            k4, n = K4.COUNTS["multi_pairing"], len(verdicts)
+            for att in atts:
+                na.publish_attestation(att)
+            wait(lambda: len(verdicts) >= n + len(atts), f"slot {slot}'s attestations on B")
+            torch.cuda.synchronize()
+            assert K4.COUNTS["multi_pairing"] > k4 and not any(verdicts[n:])
+        assert b.chain.head_state.hash_tree_root() == a.chain.head_state.hash_tree_root()
+    finally:
+        for s in services:
+            s.stop()
+        bls.set_backend(prev)
+
+
+def test_concurrent_verify_on_the_card(cuda):
+    """The beacon processor's workers, the VC's timer and the API threads
+    verify at once: two threads verify a valid batch and a batch with one
+    bad signature at the same time, 20 times, each on its own stream of
+    launches; every verdict is right."""
+    import threading
+
+    from lighthouse_tpu_torch.crypto import bls
+
+    prev = bls.backend_setting()
+    bls.set_backend(None)
+    try:
+        assert bls.backend_name() == "cuda"
+        host = bls._BACKENDS["host"]
+        keys = bls.interop_keypairs(40)
+        msgs = [hashlib.sha256(b"concurrent-%d" % i).digest() for i in range(40)]
+        sigs = [kp.sk.sign(m) for kp, m in zip(keys, msgs)]
+        good = [bls.SignatureSet.single(s, kp.pk, m) for s, kp, m in zip(sigs[:20], keys[:20], msgs[:20])]
+        bad = [bls.SignatureSet.single(s, kp.pk, m) for s, kp, m in zip(sigs[20:], keys[20:], msgs[20:])]
+        bad[7] = bls.SignatureSet.single(sigs[0], keys[27].pk, msgs[27])
+        assert host.verify_signature_sets(good) and not host.verify_signature_sets(bad)
+        for rnd in range(20):
+            out = {}
+            barrier = threading.Barrier(2)
+
+            def run(name, sets):
+                barrier.wait()
+                out[name] = bls.verify_signature_sets(sets)
+
+            threads = [threading.Thread(target=run, args=a) for a in (("good", good), ("bad", bad))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert not any(t.is_alive() for t in threads)
+            assert out == {"good": True, "bad": False}, rnd
+    finally:
+        bls.set_backend(prev)

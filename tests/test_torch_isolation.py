@@ -4,6 +4,7 @@ either runs the kernel on a card or raises; it never runs on the CPU
 silently."""
 
 import ast
+import json
 import pkgutil
 import subprocess
 import sys
@@ -61,6 +62,8 @@ def test_card_paths_load_no_yaml():
         "import lighthouse_tpu_torch.validator_client.http_api, lighthouse_tpu_torch.validator_client.beacon_node_fallback\n"
         "import lighthouse_tpu_torch.execution_layer.http, lighthouse_tpu_torch.execution_layer.watchdog\n"
         "import lighthouse_tpu_torch.crypto.keystore, lighthouse_tpu_torch.crypto.wallet\n"
+        "import lighthouse_tpu_torch.network, lighthouse_tpu_torch.client, lighthouse_tpu_torch.cli\n"
+        "import lighthouse_tpu_torch.validator_manager\n"
         "sys.exit(1 if 'yaml' in sys.modules else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -168,6 +171,67 @@ def test_vc_module_loads_no_jax_or_reference(path):
         f"{banned!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the node: the network stack, the client builder, the CLI
+NODE_MODULES = (
+    "network/messages.py", "network/gossipsub/params.py", "network/gossipsub/score.py",
+    "network/gossipsub/mcache.py", "network/gossipsub/frames.py", "network/gossipsub/behaviour.py",
+    "network/gossipsub/__init__.py", "network/rate_limiter.py", "network/mux.py", "network/noise.py",
+    "network/rpc.py", "network/discovery.py", "network/subnet_service.py", "network/sync/batch.py",
+    "network/sync/network_context.py", "network/sync/block_lookups.py", "network/sync/range_sync.py",
+    "network/sync/backfill.py", "network/sync/service.py", "network/sync/__init__.py",
+    "network/__init__.py", "client/__init__.py", "validator_manager.py", "cli.py", "__main__.py",
+)
+
+
+@pytest.fixture(scope="module")
+def node_module_loads() -> dict:
+    """What each node module brings into a fresh interpreter, by module:
+    imported one after another, each one's new entries in sys.modules
+    (a module the first one loaded shows only under that one; together
+    they are all the node loads)."""
+    mods = ["lighthouse_tpu_torch." + p[: -len(".py")].replace("/", ".").removesuffix(".__init__") for p in NODE_MODULES]
+    code = (
+        "import importlib, json, sys\n"
+        "import lighthouse_tpu_torch\n"
+        "out = {}\n"
+        f"for m in {mods!r}:\n"
+        "    before = set(sys.modules)\n"
+        "    importlib.import_module(m)\n"
+        "    out[m] = sorted(set(sys.modules) - before)\n"
+        "print(json.dumps(out))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return dict(zip(NODE_MODULES, json.loads(proc.stdout.splitlines()[-1]).values()))
+
+
+@pytest.mark.parametrize("path", NODE_MODULES)
+def test_node_module_loads_no_jax_reference_yaml_or_cryptography(path, node_module_loads):
+    """No module of the node brings in JAX, the JAX package, `yaml`, or
+    `cryptography` (Noise imports it when a transport is built)."""
+    assert not _imports(PKG / path) & set(FORBIDDEN)
+    loaded = node_module_loads[path]
+    assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN + ("yaml", "cryptography")], loaded
+
+
+def test_cryptography_loads_only_when_a_noise_transport_is_built():
+    """chip_smoke.py and the node load no `cryptography` until a Noise
+    transport is built; building one loads it where it is installed."""
+    pytest.importorskip("cryptography")
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "import lighthouse_tpu_torch.network, lighthouse_tpu_torch.network.noise, lighthouse_tpu_torch.client\n"
+        "import lighthouse_tpu_torch.cli, lighthouse_tpu_torch.validator_manager\n"
+        "assert 'cryptography' not in sys.modules\n"
+        "from lighthouse_tpu_torch.network.noise import NoiseTransport\n"
+        "NoiseTransport()\n"
+        "sys.exit(0 if 'cryptography' in sys.modules else 1)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
