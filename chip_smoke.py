@@ -162,9 +162,13 @@ each, any failure ends the run with a non-zero exit code:
    aggregates and sync messages, all accepted by the node. Each step's
    seconds on a line of its own with the card's name and power limit;
 13. the node: (a) ``python3 -m lighthouse_tpu_torch --spec minimal bn
-   --validate`` as users start it (16 validators, 3-second slots for 18
-   s), its Beacon API polled every slot: it exits 0 with
-   ``bls_backend=cuda`` and imports at least 4 blocks its VC proposed;
+   --validate --slasher`` as users start it (16 validators, 3-second slots
+   for 30 s), its Beacon API polled every slot: it exits 0 with
+   ``bls_backend=cuda``, imports at least 4 blocks its VC proposed, runs
+   one slasher cycle at each epoch edge its clock crosses (its /metrics),
+   and watch's ``WatchUpdater`` (here) indexes every block its API serves
+   into a ``WatchDB`` with its proposer and blockprint, no slot missed after
+   the first block, its ``WatchServer`` routes answering;
    (b) on the minimal preset, nodes over TCP (Noise where the
    ``cryptography`` package is installed; the transport on a line of its
    own): a harness chain finalized at epoch 2 behind ``NetworkService``
@@ -176,7 +180,21 @@ each, any failure ends the run with a non-zero exit code:
    from phase 12 (b)'s node to a node on phase 6's pre-state, which
    imports the block and accepts them all, and refuses one attestation
    with another's signature. Each step's seconds and card launches on a
-   line of its own with the card's name and power limit.
+   line of its own with the card's name and power limit;
+14. the slasher, the simulator and eth1 genesis: (a) on the minimal
+   preset, the simulator's ``LocalNetwork`` of 2 nodes with VCs, node 0 a
+   ``SlasherService`` fed a double vote, a surround vote and a double
+   proposal signed with interop keys: each slashing emitted once and
+   included in a block both nodes import, the offenders slashed in both
+   heads, finalized epoch 2; (b) the columnar slasher at the registry's
+   1,000,000 validators (4,096 epochs of history) through the native KV
+   store, in a spawned process beside phase 13: a warm epoch, then 2,048
+   aggregates with three planted offences, exactly those found, their
+   signature sets verified on the card and a tampered copy refused; (c) ``Eth1GenesisService`` over 16,384 deposits
+   of phase 5's keys signed on the card: a valid genesis whose deposits
+   pass one ``verify_signature_sets`` of 512 chunks, its state root the
+   host-lane fold's. Each step's seconds and card launches on a line of
+   its own with the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -191,9 +209,11 @@ import importlib.util
 import json
 import math
 import os
+import resource
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -312,7 +332,7 @@ EPOCH_SWEEP_SHAPES = ((1024, 1), (512, 2), (256, 4))
 N_VALIDATORS = 1_000_000
 UPDATES = 8
 # Timed state transitions (epoch boundary + block + root) in phase 6.
-TRANSITION_REPS = 3
+TRANSITION_REPS = 2
 # Blob availability in phase 7: a mainnet Deneb block's blobs
 # (MAX_BLOBS_PER_BLOCK), their gas, a range-sync segment of 32 blocks of
 # six blobs, the columns staged for reconstruction (half of 128), and the
@@ -322,7 +342,7 @@ BLOB_GAS_PER_BLOB = 2**17
 SEGMENT_BLOCKS = 32
 COLUMNS_KEPT = 64
 DA_REPS = 5
-SEGMENT_REPS = 3
+SEGMENT_REPS = 2
 # The multi-device step in phase 8, on one rank: the registry's validator
 # roots padded to a power of two of leaves (the list's limit, 2^40, above
 # them), a range-sync segment's attestation sets (32 blocks of 128) for
@@ -2820,7 +2840,7 @@ def phase_transition_main_path(state, types, E, sk_of: dict, seed: int, commitme
 # Phase 9: Electra block import across an epoch boundary
 # ---------------------------------------------------------------------------
 
-ELECTRA_REPS = 2
+ELECTRA_REPS = 1
 # What phase 9 adds to phase 6's pre-state and block (mainnet preset); the
 # CPU tests pass smaller counts for a minimal-preset registry.
 ELECTRA_SIZES = {
@@ -5416,8 +5436,10 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
 # ---------------------------------------------------------------------------
 
 NODE_BN_SECONDS_PER_SLOT = 3
-NODE_BN_RUN_FOR = 18
+# long enough for the node's clock to cross the epoch edge at slot 8
+NODE_BN_RUN_FOR = 30
 NODE_BN_MIN_BLOCKS = 4
+MINIMAL_SLOTS_PER_EPOCH = 8
 NODE_HARNESS_VALIDATORS = 64
 NODE_HARNESS_SLOTS = 32
 NODE_LIVE_SLOTS = 4
@@ -5497,22 +5519,32 @@ class _ChainLog:
 
 
 class _BnProcess:
-    """(a): `python3 -m lighthouse_tpu_torch --spec minimal bn --validate`
-    as a user starts it (no --bls-backend, no --device on the card), its
-    Beacon API polled every slot from a thread while the phase goes on;
+    """(a): `python3 -m lighthouse_tpu_torch --spec minimal bn --validate
+    --slasher` as a user starts it (no --bls-backend, no --device on the
+    card), its Beacon API polled every slot from a thread while the phase
+    goes on: the head, the slasher's cycles from /metrics, and a watch
+    WatchUpdater indexing it into a WatchDB that a WatchServer serves here;
     `result()` waits for it and reads its log for the backend, the
     proposals and tracebacks."""
 
     def __init__(self, device: str):
         import threading
 
+        from lighthouse_tpu_torch.eth2 import BeaconNodeHttpClient
+        from lighthouse_tpu_torch.types import MinimalEthSpec
+        from lighthouse_tpu_torch.watch import WatchDB, WatchServer, WatchUpdater
+
         self.device = device
         self.port = _closed_port()
         self.cmd = [
-            sys.executable, "-m", "lighthouse_tpu_torch", "--spec", "minimal", "bn", "--validate",
+            sys.executable, "-m", "lighthouse_tpu_torch", "--spec", "minimal", "bn", "--validate", "--slasher",
             "--seconds-per-slot", str(NODE_BN_SECONDS_PER_SLOT), "--run-for", str(NODE_BN_RUN_FOR),
             "--http-port", str(self.port), "--network-port", "0",
         ]
+        self.watch_db = WatchDB()
+        self.watch = WatchUpdater(BeaconNodeHttpClient(f"http://127.0.0.1:{self.port}"), self.watch_db, build_types(MinimalEthSpec))
+        self.watch_server = WatchServer(self.watch_db).start()
+        self.watch_checks: dict = {}
         if device == "cpu":
             self.cmd += ["--device", "cpu"]  # a rehearsal without a card
         root = os.path.dirname(os.path.abspath(__file__))
@@ -5537,6 +5569,49 @@ class _BnProcess:
         with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}", timeout=2) as r:
             return json.loads(r.read())["data"]
 
+    def _cycles(self) -> float:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/metrics", timeout=2) as r:
+            return _metric_series(r.read().decode(), "slasher_process_cycles_total").get('engine="columnar"', 0.0)
+
+    def _api_blocks(self) -> dict:
+        """slot -> proposer of every block the node's API serves, from the
+        head back to the first block (the genesis anchor has no header)."""
+        import urllib.error
+
+        out, block_id = {}, "head"
+        while True:
+            try:
+                msg = self._get(f"/eth/v1/beacon/headers/{block_id}")["header"]["message"]
+            except urllib.error.HTTPError as e:
+                if e.code == 404 and out:
+                    return out
+                raise
+            if int(msg["slot"]) == 0:
+                return out
+            out[int(msg["slot"])] = int(msg["proposer_index"])
+            block_id = msg["parent_root"]
+
+    def _check_watch(self):
+        """Index the node with watch, then hold watch's rows to the blocks
+        the node's API serves up to watch's highest slot."""
+        from collections import Counter
+
+        self.watch.update()
+        db = self.watch_db
+        top = db.highest_slot()
+        blocks = {k: v for k, v in self._api_blocks().items() if k <= top}
+        if blocks:
+            self.watch_checks = {
+                "highest_slot": top,
+                "blocks": len(blocks),
+                "first_block_slot": min(blocks),
+                "proposers_equal": dict(Counter(blocks.values())) == db.proposer_counts(),
+                "blockprints": sum(db.blockprint_for_slot(k) is not None for k in blocks),
+                "missed": db.missed_slots(),
+            }
+
     def _poll(self):
         while self.proc.poll() is None:
             try:
@@ -5546,8 +5621,10 @@ class _BnProcess:
                         "s": time.perf_counter() - self.t0,
                         "head_slot": int(head["header"]["message"]["slot"]),
                         "sync_distance": int(syncing["sync_distance"]),
+                        "slasher_cycles": self._cycles(),
                     }
                 )
+                self._check_watch()
             except (OSError, ValueError, KeyError):
                 pass  # not serving yet, or shutting down
             with contextlib.suppress(subprocess.TimeoutExpired):
@@ -5557,13 +5634,17 @@ class _BnProcess:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        if self.watch_server is not None:
+            self.watch_server.stop()
+            self.watch_server = None
 
     def result(self) -> dict:
         try:
             rc = self.proc.wait(timeout=NODE_WAIT)
+            self.poller.join(timeout=30)
+            served = self._watch_routes()
         finally:
             self.stop()
-        self.poller.join(timeout=30)
         self.reader.join(timeout=30)
         seconds = (self.t_end or time.perf_counter()) - self.t0
         lines = self.lines
@@ -5580,6 +5661,25 @@ class _BnProcess:
             raise AssertionError(f"(a) {len(proposed)} blocks proposed and imported, fewer than {NODE_BN_MIN_BLOCKS}:\n{tail}")
         if len(heads) < 2 or heads != sorted(heads) or heads[-1] <= heads[0] or heads[-1] < NODE_BN_MIN_BLOCKS - 1:
             raise AssertionError(f"(a) head slots over the polls {heads}")
+        # one slasher cycle at each epoch edge the node's clock crossed (the
+        # cycle rides a processor lane: a poll may fall between the edge and it)
+        spe = MINIMAL_SLOTS_PER_EPOCH
+        crossed = [(p["head_slot"] + p["sync_distance"]) // spe + 1 for p in self.polls]
+        cycles = [p["slasher_cycles"] for p in self.polls]
+        settled = [c == e for c, e in zip(cycles, crossed)]
+        if any(not e - 1 <= c <= e for c, e in zip(cycles, crossed)) or cycles[-1] < 2 or not any(
+            ok and e >= 2 for ok, e in zip(settled, crossed)
+        ):
+            raise AssertionError(f"(a) slasher cycles {cycles} over epochs crossed {crossed}")
+        w = self.watch_checks
+        if (
+            not w
+            or w["blocks"] < NODE_BN_MIN_BLOCKS
+            or not w["proposers_equal"]
+            or w["blockprints"] != w["blocks"]
+            or any(m >= w["first_block_slot"] for m in w["missed"])
+        ):
+            raise AssertionError(f"(a) watch's rows against the node's blocks: {w}")
         return {
             "command": " ".join(self.cmd[1:]),
             "exit_code": rc,
@@ -5587,7 +5687,33 @@ class _BnProcess:
             "up_line": up[0].strip(),
             "blocks_proposed_and_imported": len(proposed),
             "polls": self.polls,
+            "slasher_cycles": cycles[-1],
+            "watch": w,
+            "watch_server": served,
         }
+
+    def _watch_routes(self) -> dict:
+        """Every WatchServer route answers 200 with the DB's own answer."""
+        import urllib.request
+
+        db = self.watch_db
+        want = {
+            "/v1/slots/missed": db.missed_slots(),
+            "/v1/proposers": {str(k): v for k, v in db.proposer_counts().items()},
+            "/v1/finality": db.latest_finality(),
+            "/v1/packing": db.packing_stats(),
+            "/v1/gaps": db.gaps(),
+            "/v1/blockprint": db.blockprint_shares(),
+            "/v1/rewards": db.rewards_stats(),
+        }
+        out = {}
+        for route, expected in want.items():
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.watch_server.port}{route}", timeout=5) as r:
+                body = json.loads(r.read())
+                if r.status != 200 or body != _json_roundtrip(expected):
+                    raise AssertionError(f"(a) watch's {route}: {r.status} {body} (the DB: {expected})")
+            out[route] = body
+        return out
 
 
 def phase_node_main_path(
@@ -5934,6 +6060,575 @@ def phase_node_main_path(
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the slasher, the simulator and eth1 genesis
+# ---------------------------------------------------------------------------
+
+SIM_VALIDATORS = 32
+SIM_FINALIZED = 2
+SIM_SLOTS = 32
+SIM_MAX_SLOTS = 40
+# the last three interop validators: held by no VC, they are the offenders
+SIM_OFFENDERS = 3
+SLASHER_HISTORY = 4096
+SLASHER_COMMITTEES = 64 * 32
+GENESIS_SAMPLE = 8
+# the deposits of (c): None is the preset's MIN_GENESIS_ACTIVE_VALIDATOR_COUNT
+GENESIS_DEPOSITS = None
+
+
+def _rss_kib() -> int:
+    """This process's resident set, KiB (0 where /proc has no VmRSS)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
+def sign_on_card(sks: list[int], roots: list[bytes], device: str) -> list[bytes]:
+    """BLS signatures [sk] H(root) of many keys at once on the card: K5's
+    hash-to-G2, K2's 64-bit G2 ladder (the key in four 64-bit words,
+    sum_i k_i [2^(64 i)] H, the shifts as two ladders by 2^32 each), K2's
+    segment sum and conversion to affine; compressed on the host."""
+    from lighthouse_tpu_torch.crypto.bls12_381 import g2_to_bytes
+
+    n = len(sks)
+    dev = torch.device(device)
+    h = k_htc.hash_to_g2(torch.from_numpy(k_htc.messages_to_field(roots)).to(dev))
+    shifted = [h]
+    two32 = torch.full((n,), 1 << 32, dtype=torch.int64, device=dev)
+    for _ in range(3):
+        shifted.append(k_g.scalar_mul("g2", k_g.scalar_mul("g2", shifted[-1], two32), two32))
+    words = [(sk >> (64 * i)) & ((1 << 64) - 1) for sk in sks for i in range(4)]
+    pts = torch.stack(shifted, 1).reshape(n * 4, 3, 2, k_g.NLIMB)
+    terms = k_g.scalar_mul("g2", pts, k_g.scalars_to_tensor(words).to(dev)).reshape(n, 4, 3, 2, k_g.NLIMB)
+    aff = k_g.to_affine("g2", k_g.segment_sum("g2", terms)).cpu()
+    v = k_g.fq_from_limbs(aff)
+    return [g2_to_bytes(((v[4 * i], v[4 * i + 1]), (v[4 * i + 2], v[4 * i + 3]), (1, 0))) for i in range(n)]
+
+
+def _slashing_offenders(slashing) -> set:
+    return set(int(i) for i in slashing.attestation_1.attesting_indices) & set(
+        int(i) for i in slashing.attestation_2.attesting_indices
+    )
+
+
+def _included_slashings(chain) -> set:
+    """The serialized slashings in the bodies of a chain's canonical blocks."""
+    out = set()
+    root = bytes(chain.head_root)
+    while True:
+        blk = chain.store.get_block(root)
+        if blk is None:
+            return out
+        body = blk.message.body
+        out.update(x.serialize() for x in body.attester_slashings)
+        out.update(x.serialize() for x in body.proposer_slashings)
+        if int(blk.message.slot) == 0:
+            return out
+        root = bytes(blk.message.parent_root)
+
+
+def _sim_offences(state, types, spec, E, keypairs: list, offenders: list, slot: int) -> tuple[list, list]:
+    """Signed offences of three interop validators (a double vote, a
+    surround vote, a double proposal), as indexed attestations and signed
+    blocks over `state`'s domains."""
+    from lighthouse_tpu_torch.state_processing.accessors import get_domain
+    from lighthouse_tpu_torch.types.chain_spec import Domain, compute_signing_root
+
+    T = types.types_for_fork("altair")
+    v_double, v_surround, v_propose = offenders
+
+    def indexed(v, source, target, head):
+        data = types.AttestationData(
+            slot=target * E.SLOTS_PER_EPOCH,
+            index=0,
+            beacon_block_root=head,
+            source=types.Checkpoint(epoch=source, root=b"\x01" * 32),
+            target=types.Checkpoint(epoch=target, root=b"\x02" * 32),
+        )
+        root = compute_signing_root(data.hash_tree_root(), get_domain(state, Domain.BEACON_ATTESTER, target, spec, E))
+        return types.IndexedAttestation(attesting_indices=[v], data=data, signature=keypairs[v].sk.sign(root).to_bytes())
+
+    def block(graffiti):
+        m = T.BeaconBlock(
+            slot=slot,
+            proposer_index=v_propose,
+            parent_root=b"\x11" * 32,
+            state_root=b"\x22" * 32,
+            body=T.BeaconBlockBody(graffiti=graffiti.ljust(32, b"\x00")),
+        )
+        domain = get_domain(state, Domain.BEACON_PROPOSER, slot // E.SLOTS_PER_EPOCH, spec, E)
+        sig = keypairs[v_propose].sk.sign(compute_signing_root(m.hash_tree_root(), domain)).to_bytes()
+        return T.SignedBeaconBlock(message=m, signature=sig)
+
+    atts = [
+        indexed(v_double, 0, 1, b"\x0a" * 32),
+        indexed(v_double, 0, 1, b"\x0b" * 32),
+        indexed(v_surround, 0, 3, b"\x0c" * 32),
+        indexed(v_surround, 1, 2, b"\x0d" * 32),
+    ]
+    return atts, [block(b"first"), block(b"second")]
+
+
+def _flood(types, E, n: int, committees: int, source: int, target: int, rng, skip: set) -> tuple[list, dict]:
+    """One epoch's attestations of the whole registry: `committees`
+    aggregates (unsigned: the slasher checks no signature) over a seeded
+    permutation, the validators in `skip` left out of theirs; and each
+    skipped validator's AttestationData."""
+    cp = types.Checkpoint(epoch=source, root=b"\x01" * 32)
+    ct = types.Checkpoint(epoch=target, root=b"\x02" * 32)
+    out, data_of = [], {}
+    for i, members in enumerate(np.array_split(rng.permutation(n), committees)):
+        data = types.AttestationData(
+            slot=target * E.SLOTS_PER_EPOCH + i % E.SLOTS_PER_EPOCH,
+            index=i // E.SLOTS_PER_EPOCH,
+            beacon_block_root=b"\x03" * 32,
+            source=cp,
+            target=ct,
+        )
+        members = np.sort(members)
+        for v in skip.intersection(members.tolist()):
+            data_of[v] = data
+        members = members[~np.isin(members, list(skip))]
+        out.append(types.IndexedAttestation(attesting_indices=members.tolist(), data=data, signature=b"\x00" * 96))
+    return out, data_of
+
+
+def planted_slasher_traffic(types, E, n: int, f_epoch: int, offenders: tuple, sks: tuple, domains: dict, rng) -> tuple[list, list]:
+    """Two epochs of slasher traffic over `n` validators, the second
+    `f_epoch`: 2,048 unsigned aggregates an epoch in which every validator
+    attests once, but the three `offenders` (a double vote,
+    old-surrounds-new, new-surrounds-old), whose every vote is a
+    single-index attestation signed with its key in `sks` over
+    `domains[target epoch]` (the attester domain). The warm epoch holds no
+    slashable pair; the second holds exactly three."""
+    from lighthouse_tpu_torch.types.chain_spec import compute_signing_root
+
+    v_double, v_surrounded, v_surrounder = offenders
+    sk_of = dict(zip(offenders, sks))
+    planted = set(offenders)
+    w_epoch = f_epoch - 1
+
+    def signed(v, data):
+        root = compute_signing_root(data.hash_tree_root(), domains[int(data.target.epoch)])
+        return types.IndexedAttestation(attesting_indices=[v], data=data, signature=bls_sign(sk_of[v], root))
+
+    def single(v, source, target, head):
+        data = types.AttestationData(
+            slot=target * E.SLOTS_PER_EPOCH,
+            index=0,
+            beacon_block_root=head,
+            source=types.Checkpoint(epoch=source, root=b"\x01" * 32),
+            target=types.Checkpoint(epoch=target, root=b"\x02" * 32),
+        )
+        return signed(v, data)
+
+    warm, warm_data = _flood(types, E, n, SLASHER_COMMITTEES, w_epoch - 1, w_epoch, rng, planted)
+    flood, flood_data = _flood(types, E, n, SLASHER_COMMITTEES, w_epoch, f_epoch, rng, planted)
+    warm += [signed(v, warm_data[v]) for v in sorted(planted)]
+    # a wide vote that surrounds its own validator's flood vote (not its warm one)
+    warm.append(single(v_surrounded, w_epoch - 1, f_epoch + 1, b"\xaa" * 32))
+    # a narrow vote that the attacker's flood vote surrounds
+    warm.append(single(v_surrounder, f_epoch, f_epoch + 1, b"\xbb" * 32))
+    flood += [signed(v, flood_data[v]) for v in sorted(planted)]
+    flood.append(single(v_double, w_epoch, f_epoch, b"\xcc" * 32))
+    flood.append(single(v_surrounder, w_epoch, f_epoch + 2, b"\xdd" * 32))
+    return warm, flood
+
+
+def attester_domains(state, E, spec, epochs) -> dict:
+    """epoch -> the attester domain over `state`'s fork and genesis root."""
+    from lighthouse_tpu_torch.state_processing.accessors import get_domain
+    from lighthouse_tpu_torch.types.chain_spec import Domain
+
+    return {e: get_domain(state, Domain.BEACON_ATTESTER, e, spec, E) for e in epochs}
+
+
+def slasher_at_scale(n: int, f_epoch: int, offenders: tuple, sks: tuple, domains: dict, seed: int, store_dir: str) -> dict:
+    """Phase 14 (b)'s slasher in a process of its own (spawned: it touches
+    no card): the two epochs of planted_slasher_traffic through a columnar
+    Slasher over the native store at `store_dir`, 4,096 epochs of history.
+    Returns each cycle's stats, seconds and store writes, the counters, the
+    RSS, and the emitted slashings as SSZ."""
+    from lighthouse_tpu_torch.metrics import REGISTRY
+    from lighthouse_tpu_torch.slasher import Slasher, SlasherConfig
+    from lighthouse_tpu_torch.slasher.columnar import ColumnarSlasher
+    from lighthouse_tpu_torch.store import open_item_store
+
+    E = MainnetEthSpec
+    types = build_types(E)
+    t0 = time.perf_counter()
+    warm, flood = planted_slasher_traffic(types, E, n, f_epoch, offenders, sks, domains, np.random.default_rng(seed))
+    out = {"steps_s": {"b_build_floods": time.perf_counter() - t0}, "attestations": {"warm": len(warm), "flood": len(flood)}}
+    store = open_item_store(store_dir)
+    written = {"puts": 0, "bytes": 0}
+    do_atomically = store.do_atomically
+
+    def counted(ops):
+        for op in ops:
+            if op[0] == "put":
+                written["puts"] += 1
+                written["bytes"] += len(op[2]) + len(op[3])
+        return do_atomically(ops)
+
+    store.do_atomically = counted
+    slasher = Slasher(E, SlasherConfig(history_length=SLASHER_HISTORY), store=store)
+    out["engine"], out["store"] = type(slasher).__name__, type(store).__name__
+    if not isinstance(slasher, ColumnarSlasher):
+        return out
+    rss0 = _rss_kib()
+
+    def mark():
+        return {
+            "exact_scans": REGISTRY.counter("slasher_exact_scans_total").value(),
+            "tiles": REGISTRY.counter("slasher_span_tiles_flushed_total").value(),
+            **written,
+        }
+
+    for name, atts, epoch in (("warm", warm, f_epoch - 1), ("flood", flood, f_epoch)):
+        before = mark()
+        t0 = time.perf_counter()
+        for a in atts:
+            slasher.accept_attestation(a)
+        stats = slasher.process_queued(epoch)
+        found, props = slasher.drain_slashings()
+        out["steps_s"][f"b_{name}_cycle"] = time.perf_counter() - t0
+        out[name] = {"stats": stats, "proposer_slashings": len(props), "attester_slashings": [x.serialize() for x in found]}
+        out[name] |= {k: v - before[k] for k, v in mark().items()}
+    store.close()
+    out["rss_kib"] = {"before": rss0, "after": _rss_kib(), "peak_of_the_process": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}
+    return out
+
+
+def start_slasher_at_scale(state, E, sk_of: dict, seed: int, store_dir: str):
+    """Phase 14 (b)'s slasher started in a spawned process beside the
+    phases that run until phase 14 reads it: (future, executor, offenders)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+
+    rng = np.random.default_rng(seed + 41)
+    offenders = tuple(int(v) for v in rng.choice(sorted(sk_of), 3, replace=False))
+    f_epoch = int(state.slot) // E.SLOTS_PER_EPOCH
+    domains = attester_domains(state, E, mainnet_spec(), range(f_epoch - 1, f_epoch + 3))
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    args = (len(state.validators), f_epoch, offenders, tuple(sk_of[v] for v in offenders), domains, seed + 43, store_dir)
+    return pool.submit(slasher_at_scale, *args), pool, offenders
+
+
+def stop_slasher_at_scale(slasher_run) -> None:
+    """End start_slasher_at_scale's process, done or not."""
+    _, pool, _ = slasher_run
+    for proc in list(getattr(pool, "_processes", {}).values()):
+        proc.kill()
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
+def signed_deposits(types, E, spec, keys: list, device: str) -> tuple[list, list]:
+    """DepositData of 32 ETH for each (secret key, pubkey) in `keys`, BLS
+    withdrawal credentials, signed over the deposit domain on the card
+    (sign_on_card); and the signing roots."""
+    from lighthouse_tpu_torch.state_processing.genesis import bls_withdrawal_credentials
+    from lighthouse_tpu_torch.types.chain_spec import compute_signing_root
+
+    domain = spec.get_deposit_domain()
+    msgs = [types.DepositMessage(pubkey=pk, withdrawal_credentials=bls_withdrawal_credentials(pk), amount=E.MAX_EFFECTIVE_BALANCE) for _, pk in keys]
+    roots = [compute_signing_root(m.hash_tree_root(), domain) for m in msgs]
+    sigs = sign_on_card([sk for sk, _ in keys], roots, device)
+    datas = [
+        types.DepositData(pubkey=m.pubkey, withdrawal_credentials=m.withdrawal_credentials, amount=m.amount, signature=sig)
+        for m, sig in zip(msgs, sigs)
+    ]
+    return datas, roots
+
+
+def eth1_genesis(datas: list, spec, E, step=None):
+    """Eth1GenesisService over a MockEth1Provider that takes `datas` (the
+    spec's MIN_GENESIS_ACTIVE_VALIDATOR_COUNT of them): try_genesis with
+    one deposit short (must give None), then with all. The deposits'
+    signatures must pass as one verify_signature_sets call: a refusal
+    raises at once instead of the per-deposit verifies that would follow.
+    Returns (the genesis state, the Eth1Service, [(sets, verdict,
+    seconds)] of the verify calls, the card's BLS chunks)."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.eth1 import Eth1GenesisService, Eth1Service, MockEth1Provider
+    from lighthouse_tpu_torch.metrics import REGISTRY
+
+    step = step or (lambda name, fn: fn())
+    provider = MockEth1Provider(spec, start_time=spec.min_genesis_time - spec.genesis_delay)
+    provider.mine_block()
+    for d in datas[:-1]:
+        provider.submit_deposit(d)
+    provider.mine_block()
+    service = Eth1Service(provider, spec, E)
+    genesis = Eth1GenesisService(service, spec, E)
+    if step("c_try_genesis_short", genesis.try_genesis) is not None:
+        raise AssertionError("(c) a genesis before the deposit count holds")
+    provider.submit_deposit(datas[-1])
+    provider.mine_block()
+    batches = []
+    verify = bls.verify_signature_sets
+
+    def verify_logged(sets, *args, **kwargs):
+        t0 = time.perf_counter()
+        res = verify(sets, *args, **kwargs)
+        batches.append((len(sets), res, time.perf_counter() - t0))
+        if not res:
+            raise AssertionError("(c) the deposit batch was refused: the per-deposit verifies would follow")
+        return res
+
+    chunks = REGISTRY.counter("bls_device_batches_total")
+    before = chunks.value()
+    bls.verify_signature_sets = verify_logged
+    try:
+        state = step("c_try_genesis", genesis.try_genesis)
+    finally:
+        bls.verify_signature_sets = verify
+    return state, service, batches, chunks.value() - before
+
+
+def phase_slasher_main_path(state, types, E, sk_of: dict, slasher_run, smi: str) -> dict:
+    """The slasher, the simulator and eth1 genesis, with the BLS backend
+    following the device (`cuda` on the card); `sk_of` holds the secret
+    keys of `state`'s validators by index (phases 5-6 minted them):
+    (a) minimal preset with Altair from genesis: the simulator's
+        LocalNetwork of 2 nodes (threads of this process, over TCP on
+        127.0.0.1) with VCs on disjoint interop key shares, the last 3
+        keys held by none; node 0 carries a SlasherService fed, through
+        observe_indexed_attestation and observe_block, a double vote, a
+        surround vote and a double proposal signed with those keys. Each
+        slashing is emitted once, included in a block both nodes import,
+        its offender slashed in both heads; the heads equal, finalized
+        epoch >= 2;
+    (b) mainnet, the columnar slasher at the registry's 1M validators with
+        4,096 epochs of history, through a store of `bn --db-path`'s kind:
+        a warm epoch, then one epoch of 2,048 aggregates in which every
+        validator attests once, with three planted offenders (a double
+        vote, old-surrounds-new, new-surrounds-old), their votes signed
+        single-index attestations. It runs in a spawned process
+        (`slasher_run`, from start_slasher_at_scale) beside phase 13; here
+        its result is read: exactly the three slashings come out, their
+        signature sets, built on phase 6's pre-state, pass one
+        verify_signature_sets on the card, a copy with a signature swapped
+        fails;
+    (c) mainnet: Eth1GenesisService over a MockEth1Provider that takes
+        MIN_GENESIS_ACTIVE_VALIDATOR_COUNT (16,384) deposits of phase 5's
+        keys, signed on the card (a sample held against the host signer):
+        None before the count holds, then a valid genesis whose deposits
+        were verified in one verify_signature_sets of 16,384 sets on the
+        card, its deposit root the DepositCache's and its state root the
+        host-lane fold's.
+    Each step's seconds and card launches on a line of its own with the
+    card's name and power limit."""
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch import default_device
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.metrics import REGISTRY
+    from lighthouse_tpu_torch.slasher.service import SlasherService
+    from lighthouse_tpu_torch.state_processing import signature_sets as ss
+    from lighthouse_tpu_torch.state_processing.genesis import is_valid_genesis_state
+    from lighthouse_tpu_torch.testing.simulator import LocalNetwork
+    from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.validator_client import ValidatorClient
+
+    device = default_device().type
+    on_card = device == "cuda"
+    if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
+    counter = REGISTRY.counter
+    reset_chain_counts()
+    steps, launches, details, step = _stepper("slasher_step", smi)
+
+    # (a) the simulator with a slasher on node 0
+    spec_m = replace(minimal_spec(), altair_fork_epoch=0)
+    Em = MinimalEthSpec
+    types_m = build_types(Em)
+    net = step("a_network", lambda: LocalNetwork.create(spec_m, Em, 2, SIM_VALIDATORS))
+    try:
+        offenders = list(range(SIM_VALIDATORS - SIM_OFFENDERS, SIM_VALIDATORS))
+        node0, node1 = net.nodes
+        share = SIM_VALIDATORS // 2
+        node1.vc = ValidatorClient(
+            chain=node1.chain, keypairs=net.keypairs[share : SIM_VALIDATORS - SIM_OFFENDERS], spec=spec_m, E=Em, node=node1.interface
+        )
+        svc = SlasherService(node0.chain)
+        emitted = []
+        drain = svc.slasher.drain_slashings
+
+        def drain_logged():
+            atts, props = drain()
+            emitted.extend(list(atts) + list(props))
+            return atts, props
+
+        svc.slasher.drain_slashings = drain_logged
+        planted_at = Em.SLOTS_PER_EPOCH + 1
+
+        def run_slots(first, last):
+            for slot in range(first, last + 1):
+                net.run_slot(slot)
+                # the node's slot timer; the network's slot tick competes for the epoch
+                svc.on_slot(slot, processor=node0.network.processor)
+                if not node0.network.processor.drain(timeout=NODE_WAIT):
+                    raise AssertionError(f"(a) node 0's processor did not drain at slot {slot}")
+                if slot == planted_at:
+                    atts, blocks = _sim_offences(node0.chain.head_state, types_m, spec_m, Em, net.keypairs, offenders, slot)
+                    for a in atts:
+                        svc.observe_indexed_attestation(a)
+                    for b in blocks:
+                        svc.observe_block(b)
+
+        cycles0 = counter("slasher_process_cycles_total").value(engine="columnar")
+        step("a_slots", lambda: run_slots(1, SIM_SLOTS))
+        last = SIM_SLOTS
+        while node0.chain.finalized_checkpoint.epoch < SIM_FINALIZED and last < SIM_MAX_SLOTS:
+            last += 1
+            step(f"a_slot_{last}", lambda: run_slots(last, last))
+        net.check_all_heads_equal()
+        net.check_finalized_epoch(SIM_FINALIZED)
+        att_sl = [x for x in emitted if hasattr(x, "attestation_1")]
+        prop_sl = [x for x in emitted if hasattr(x, "signed_header_1")]
+        if len(att_sl) != 2 or len(prop_sl) != 1 or len({x.serialize() for x in emitted}) != 3:
+            raise AssertionError(f"(a) emitted {len(att_sl)} attester and {len(prop_sl)} proposer slashings")
+        found = sorted(_slashing_offenders(x).pop() for x in att_sl) + [int(prop_sl[0].signed_header_1.message.proposer_index)]
+        if sorted(found) != offenders:
+            raise AssertionError(f"(a) slashings of {found}, planted {offenders}")
+        for node in net.nodes:
+            included = _included_slashings(node.chain)
+            missing = [x for x in emitted if x.serialize() not in included]
+            head = node.chain.head_state
+            unslashed = [v for v in offenders if not head.validators[v].slashed]
+            if missing or unslashed:
+                raise AssertionError(f"(a) {node.name}: {len(missing)} slashings not in its chain, {unslashed} not slashed")
+        epochs_run = last // Em.SLOTS_PER_EPOCH + 1
+        a_cycles = counter("slasher_process_cycles_total").value(engine="columnar") - cycles0
+        if a_cycles != epochs_run:
+            raise AssertionError(f"(a) {a_cycles} slasher cycles over {epochs_run} epochs")
+        a_out = {
+            "validators": SIM_VALIDATORS,
+            "offenders": offenders,
+            "slots": last,
+            "head_slot": int(node0.chain.head_state.slot),
+            "finalized_epoch": int(node0.chain.finalized_checkpoint.epoch),
+            "justified_epoch": int(node0.chain.head_state.current_justified_checkpoint.epoch),
+            "slashings_emitted": {"attester": len(att_sl), "proposer": len(prop_sl)},
+            "slasher_cycles": a_cycles,
+        }
+    finally:
+        net.shutdown()
+    del net, svc
+
+    # (b) the columnar slasher at the registry's size, in its own process
+    spec = mainnet_spec()
+    future, _, planted = slasher_run
+    t0 = time.perf_counter()
+    run = future.result(timeout=NODE_WAIT)
+    waited = time.perf_counter() - t0
+    for name, sec in run["steps_s"].items():
+        steps[name], launches[name] = sec, {}
+        emit({"phase": "slasher_step", "step": name, "s": sec, "launches": "in its own process", "card": smi})
+    if run["engine"] != "ColumnarSlasher":
+        raise AssertionError(f"(b) the factory gave {run['engine']}")
+    warm, flood = run["warm"], run["flood"]
+    if warm["attester_slashings"] or warm["proposer_slashings"] or flood["proposer_slashings"] or warm["stats"]["attester_slashings"]:
+        raise AssertionError(f"(b) unplanted slashings: warm {warm['stats']}, flood {flood['proposer_slashings']} proposer")
+    flood_att = [types.AttesterSlashing.deserialize(x) for x in flood["attester_slashings"]]
+    offenders_b = sorted(sorted(_slashing_offenders(x)) for x in flood_att)
+    if flood["stats"]["attester_slashings"] != 3 or offenders_b != sorted([v] for v in planted):
+        raise AssertionError(f"(b) the flood cycle found {flood['stats']} of {offenders_b}, planted {sorted(planted)}")
+    sets = [ss.indexed_attestation_signature_set(state, ia, spec, E) for x in flood_att for ia in (x.attestation_1, x.attestation_2)]
+    ok = step("b_verify_slashings", lambda: bls.verify_signature_sets(sets))
+    bad = flood_att[0].attestation_1
+    swapped = types.IndexedAttestation(attesting_indices=bad.attesting_indices, data=bad.data, signature=flood_att[1].attestation_2.signature)
+    tampered = sets[:1] + [ss.indexed_attestation_signature_set(state, swapped, spec, E)] + sets[2:]
+    refused = not step("b_verify_tampered", lambda: bls.verify_signature_sets(tampered))
+    if not ok or not refused:
+        raise AssertionError(f"(b) the slashings' sets verified {ok}, the tampered copy refused {refused}")
+    b_out = {
+        "validators": len(state.validators),
+        "aggregates": SLASHER_COMMITTEES,
+        "attestations": run["attestations"],
+        "history_length": SLASHER_HISTORY,
+        "planted": dict(zip(("double_vote", "old_surrounds_new", "new_surrounds_old"), planted)),
+        "flood_cycle_s": run["steps_s"]["b_flood_cycle"],
+        "warm_cycle_s": run["steps_s"]["b_warm_cycle"],
+        "aggregates_per_s": run["attestations"]["flood"] / run["steps_s"]["b_flood_cycle"],
+        "warm": {k: v for k, v in warm.items() if k not in ("attester_slashings",)},
+        "flood": {k: v for k, v in flood.items() if k not in ("attester_slashings",)},
+        "rss_kib": run["rss_kib"],
+        "store": run["store"],
+        "waited_here_s": waited,
+    }
+
+    # (c) eth1 genesis at mainnet's MIN_GENESIS_ACTIVE_VALIDATOR_COUNT
+    count = GENESIS_DEPOSITS or spec.min_genesis_active_validator_count
+    spec_g = replace(spec, min_genesis_active_validator_count=count)
+    keyed = sorted(sk_of)[:count]
+    if len(keyed) != count:
+        raise AssertionError(f"(c) {len(keyed)} keys for {count} deposits")
+    datas, roots = step("c_sign_on_card", lambda: signed_deposits(types, E, spec_g, [(sk_of[v], bytes(state.validators[v].pubkey)) for v in keyed], device))
+    sample = range(0, count, count // GENESIS_SAMPLE)
+    if any(bytes(datas[i].signature) != bls_sign(sk_of[keyed[i]], roots[i]) for i in sample):
+        raise AssertionError("(c) a signature made on the card differs from the host signer's")
+    pks = [_g1_affine_bytes(x, y) for x, y in _g1_gen_affine([sk_of[keyed[i]] for i in sample])]
+    if pks != [bytes(datas[i].pubkey) for i in sample]:
+        raise AssertionError("(c) a deposit's pubkey is not its key's: the keys are not the registry's")
+    gstate, service, batches, chunks = eth1_genesis(datas, spec_g, E, step)
+    if gstate is None or [b[:2] for b in batches] != [(count, True)] or (on_card and chunks != -(-count // bls.DEFAULT_DEVICE_CHUNK)):
+        raise AssertionError(f"(c) genesis {gstate is not None}, verify calls {[b[:2] for b in batches]}, card chunks {chunks}")
+    if not is_valid_genesis_state(gstate, spec_g, E) or len(gstate.validators) != count:
+        raise AssertionError("(c) the genesis state is not valid")
+    if bytes(gstate.eth1_data.deposit_root) != service.deposit_cache.deposit_root():
+        raise AssertionError("(c) the state's deposit root is not the DepositCache's")
+    root = step("c_state_root", lambda: bytes(gstate.hash_tree_root()))
+    want = step("c_host_state_root", lambda: host_state_root(gstate))
+    if root != want:
+        raise AssertionError("(c) the genesis state root differs from the host-lane fold")
+    c_out = {
+        "deposits": count,
+        "signing": "card (K5, K2 G2 ladder, segment sum, to_affine)",
+        "sign_s": steps["c_sign_on_card"],  # the deposit messages' roots included
+        "sample_held_against_host": len(sample),
+        "verify_sets": batches[0][0],
+        "verify_s": batches[0][2],
+        "verify_chunks": chunks,
+        "genesis_build_s": steps["c_try_genesis"] - batches[0][2],
+        "genesis_time": int(gstate.genesis_time),
+        "state_root": root.hex(),
+        "deposit_root": bytes(gstate.eth1_data.deposit_root).hex(),
+    }
+
+    counts = chain_counts()
+    if on_card:
+        for part, required in (("a", ["epoch_sweep", *BLS_KERNELS]), ("b", list(BLS_KERNELS)), ("c", list(BLS_KERNELS))):
+            got = {k: sum(launches[s].get(k, 0) for s in steps if s.startswith(part + "_")) for k in required}
+            missing = [k for k, v in got.items() if v <= 0]
+            if missing:
+                raise AssertionError(f"({part}) launched no {missing}")
+    out = {
+        "phase": "slasher_main_path",
+        "backend": bls.backend_name(),
+        "a_simulator": a_out,
+        "b_slasher_1m": b_out,
+        "c_eth1_genesis": c_out,
+        "steps_s": steps,
+        "launches_per_step": launches,
+        "launches": counts,
+        # this phase's own seconds; (b)'s slasher ran beside phase 13
+        "s": sum(v for k, v in steps.items() if k not in run["steps_s"]) + waited,
+        "b_beside_phase_13_s": sum(run["steps_s"].values()),
+    }
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -5975,7 +6670,7 @@ def main(argv=None) -> int:
     transition, signed, tampered = phase_transition_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
     # the keys phases 5-6 minted, whose pubkeys are in the registry (phase 9
     # mints more, into its Electra copy only)
-    vc_keys = dict(sk_of)
+    vc_keys, registry_keys = dict(sk_of), dict(sk_of)
     # a fresh engine on the same setup: phase 7 builds its table in its run
     blob_path = phase_blob_main_path(Kzg(kzg.setup), blobs, signed, types, MainnetEthSpec, args.seed)
     sharded = phase_sharded_main_path(state, kzg, args.seed)
@@ -5989,9 +6684,18 @@ def main(argv=None) -> int:
     # the validator client: (a) to finality over HTTP, (b) phase 6's keys at 1M
     vc, vc_node = phase_vc_main_path(state, signed, post_root, types, MainnetEthSpec, vc_keys, args.seed, smi)
     # the node: `bn` as users start it, nodes over TCP, phase 12 (b)'s
-    # attestations gossiped at 1M
-    node = phase_node_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, vc_node, smi)
-    del vc_node
+    # attestations gossiped at 1M; beside it, in a spawned process, phase 14
+    # (b)'s slasher at 1M validators through a store; then phase 14: the
+    # slasher in the simulator, (b)'s slashings verified, and eth1 genesis
+    # from 16,384 deposits of phase 5's keys
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slasher_") as tmp:
+        slasher_run = start_slasher_at_scale(state, MainnetEthSpec, registry_keys, args.seed, os.path.join(tmp, "slasher"))
+        try:
+            node = phase_node_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, vc_node, smi)
+            del vc_node
+            slasher = phase_slasher_main_path(state, types, MainnetEthSpec, registry_keys, slasher_run, smi)
+        finally:
+            stop_slasher_at_scale(slasher_run)
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -6009,6 +6713,7 @@ def main(argv=None) -> int:
                     "launches_api": api["launches"]["sha256_rows"],
                     "launches_vc": vc["launches"]["sha256_rows"],
                     "launches_node": node["launches"]["sha256_rows"],
+                    "launches_slasher": slasher["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -6031,6 +6736,7 @@ def main(argv=None) -> int:
                     "launches_api": api["launches"][name],
                     "launches_vc": vc["launches"][name],
                     "launches_node": node["launches"][name],
+                    "launches_slasher": slasher["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -6095,6 +6801,7 @@ def main(argv=None) -> int:
                     "launches_api": api["launches"]["epoch_sweep"],
                     "launches_vc": vc["launches"]["epoch_sweep"],
                     "launches_node": node["launches"]["epoch_sweep"],
+                    "launches_slasher": slasher["launches"]["epoch_sweep"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
@@ -6118,6 +6825,7 @@ def main(argv=None) -> int:
                     "launches_api": api["launches"][name],
                     "launches_vc": vc["launches"][name],
                     "launches_node": node["launches"][name],
+                    "launches_slasher": slasher["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -6163,6 +6871,7 @@ def main(argv=None) -> int:
                     "launches_api": api["launches"][name],
                     "launches_vc": vc["launches"][name],
                     "launches_node": node["launches"][name],
+                    "launches_slasher": slasher["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -6227,6 +6936,7 @@ def main(argv=None) -> int:
                     "launches_api": api["launches"]["g1_scalar_mul_wide64"],
                     "launches_vc": vc["launches"]["g1_scalar_mul_wide64"],
                     "launches_node": node["launches"]["g1_scalar_mul_wide64"],
+                    "launches_slasher": slasher["launches"]["g1_scalar_mul_wide64"],
                     "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
                     "ms": sharded["b_rlc_sum"]["kernels_ms"],
                     "plain_ms": sharded["b_rlc_sum"]["plain_ms"],

@@ -179,6 +179,13 @@ class _DecompressionCache:
             self._lru.setdefault(data, [point, True])[1] = True
         return ok
 
+    def put(self, data: bytes, point):
+        """Keep a point decompressed elsewhere (the host pool's workers)."""
+        self._lru.setdefault(data, [point, False])
+
+    def has(self, data: bytes) -> bool:
+        return self._lru.get(data) is not None
+
     def clear(self):
         self._lru.clear()
 
@@ -548,6 +555,17 @@ def _prep_chunk(chunk):
                 acc = pt_add(FQ, acc, p)
             agg_pk = _cache_put(_W_AGG, pk_tuple, acc)
         out.append((sig_pt, agg_pk))
+    return out
+
+
+def _decompress_g2_chunk(encodings):
+    """[96-byte signature, ...] → [G2 point or None (no valid encoding)]."""
+    out = []
+    for data in encodings:
+        try:
+            out.append(g2_from_bytes(data))
+        except ValueError:
+            out.append(None)
     return out
 
 
@@ -924,10 +942,49 @@ class _CudaBackend(_HostBackend):
         chunk = int(
             os.environ.get("LIGHTHOUSE_TPU_BLS_CHUNK", str(DEFAULT_DEVICE_CHUNK))
         ) or len(sets)
+        staged = 0 if len(sets) >= POOL_DECOMPRESS_MIN else len(sets)
         for i in range(0, len(sets), chunk):
+            if i >= staged:
+                staged = i + _decompress_on_pool(sets[i:i + POOL_DECOMPRESS_SETS])
             if not verify_signature_sets_device_full(sets[i:i + chunk], rng):
                 return False
         return True
+
+
+#: a batch of at least this many sets has its signatures decompressed on
+#: the host pool, POOL_DECOMPRESS_SETS at a time, before the card's chunks
+#: stage them (one host G2 square root a signature otherwise, in series)
+POOL_DECOMPRESS_MIN = 256
+POOL_DECOMPRESS_SETS = 2048
+
+
+def _decompress_on_pool(sets) -> int:
+    """Decompress the signatures of `sets` that the signature cache does not
+    hold on the host pool's workers and keep them in the cache, where the
+    card's staging finds them. An encoding that does not decompress is left
+    out: the staging meets it and refuses its chunk as before. Returns the
+    number of sets covered."""
+    from ...device import resolve_device
+    from ...parallel import host_pool
+
+    resolve_device()  # a forked API worker forwards the request: no pool here
+    todo = list(
+        dict.fromkeys(
+            s.signature.to_bytes()
+            for s in sets
+            if s.signature._point is None
+            and not s.signature.is_infinity()
+            and not _SIG_CACHE.has(s.signature.to_bytes())
+        )
+    )
+    pool = host_pool.get_pool()
+    if pool.size > 1 and len(todo) >= POOL_DECOMPRESS_MIN // 2:
+        shards = host_pool.shard(todo, pool.size)
+        for shard, points in zip(shards, pool.map(_decompress_g2_chunk, shards)):
+            for data, point in zip(shard, points):
+                if point is not None:
+                    _SIG_CACHE.put(data, point)
+    return len(sets)
 
 
 _BACKENDS = {

@@ -51,6 +51,7 @@ REGISTRY.counter(
 # — registered at import so the series exist at zero before the first batch
 for _stage in ("da_verify", "da_derive", "da_msm", "da_pairing"):
     REGISTRY.histogram(
+        # lint: allow(metric-hygiene) -- bounded by the stage tuple above
         f"trace_span_seconds_{_stage}",
         f"span duration: {_stage}",
     )

@@ -965,3 +965,69 @@ def test_concurrent_verify_on_the_card(cuda):
             assert out == {"good": True, "bad": False}, rnd
     finally:
         bls.set_backend(prev)
+
+
+def test_planted_slashings_at_1m_validators_verify_on_the_card(cuda):
+    """chip_smoke phase 14 (b) without its store: the columnar slasher over
+    1,000,000 validators (4,096 epochs of history) finds exactly the three
+    planted offences in the second epoch's flood; their signature sets,
+    built on a 4,096-validator state holding the offenders' keys, pass one
+    verify_signature_sets on K2-K6, and a copy with one signature swapped
+    fails."""
+    from chip_smoke import _slashing_offenders, attester_domains, bls_keys, planted_slasher_traffic
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.slasher import Slasher, SlasherConfig
+    from lighthouse_tpu_torch.state_processing import signature_sets as ss
+    from lighthouse_tpu_torch.types import MainnetEthSpec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+
+    E, spec = MainnetEthSpec, mainnet_spec()
+    types = build_types(E)
+    state = build_deneb_state(types, E, 4096, 5)
+    _make_persistent(state)
+    rng = np.random.default_rng(5)
+    offenders = (11, 222, 3333)
+    sks, _, pks = bls_keys(rng, len(offenders))
+    for v, pk in zip(offenders, pks):
+        state.validators.mutate(v).pubkey = pk
+    epoch = int(state.slot) // E.SLOTS_PER_EPOCH
+    domains = attester_domains(state, E, spec, range(epoch - 1, epoch + 3))
+    warm, flood = planted_slasher_traffic(types, E, 1_000_000, epoch, offenders, tuple(sks), domains, rng)
+    slasher = Slasher(E, SlasherConfig(history_length=4096))
+    for atts, ep in ((warm, epoch - 1), (flood, epoch)):
+        for a in atts:
+            slasher.accept_attestation(a)
+        out = slasher.process_queued(ep)
+    found, props = slasher.drain_slashings()
+    assert out == {"attester_slashings": 3, "proposer_slashings": 0} and not props
+    assert sorted(_slashing_offenders(x).pop() for x in found) == sorted(offenders)
+    sets = [ss.indexed_attestation_signature_set(state, ia, spec, E) for x in found for ia in (x.attestation_1, x.attestation_2)]
+    before = K5.COUNTS["hash_to_g2"]
+    assert bls.backend_name() == "cuda" and bls.verify_signature_sets(sets)
+    assert K5.COUNTS["hash_to_g2"] == before + 1
+    bad = found[0].attestation_1
+    swapped = types.IndexedAttestation(attesting_indices=bad.attesting_indices, data=bad.data, signature=found[1].attestation_2.signature)
+    assert not bls.verify_signature_sets(sets[:1] + [ss.indexed_attestation_signature_set(state, swapped, spec, E)] + sets[2:])
+
+
+def test_genesis_deposit_batch_of_16384_on_the_card_without_fallback(cuda):
+    """chip_smoke phase 14 (c)'s batch: 16,384 deposits (mainnet's
+    MIN_GENESIS_ACTIVE_VALIDATOR_COUNT) signed on the card, then eth1
+    genesis verifies them in one verify_signature_sets call of 512 chunks
+    on K2-K6 (a refusal would raise before any per-deposit verify)."""
+    from chip_smoke import bls_keys, bls_sign, eth1_genesis, signed_deposits
+    from lighthouse_tpu_torch.state_processing.genesis import is_valid_genesis_state
+    from lighthouse_tpu_torch.types import MainnetEthSpec
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+
+    E, spec = MainnetEthSpec, mainnet_spec()
+    count = spec.min_genesis_active_validator_count
+    sks, _, pks = bls_keys(np.random.default_rng(7), count)
+    datas, roots = signed_deposits(build_types(E), E, spec, list(zip(sks, pks)), "cuda")
+    assert all(bytes(datas[i].signature) == bls_sign(sks[i], roots[i]) for i in (0, 1, count // 2, count - 1))
+    before = K5.COUNTS["hash_to_g2"]
+    state, service, batches, chunks = eth1_genesis(datas, spec, E)
+    assert [b[:2] for b in batches] == [(count, True)] and chunks == count // 32
+    assert K5.COUNTS["hash_to_g2"] - before == count // 32
+    assert is_valid_genesis_state(state, spec, E) and len(state.validators) == count
+    assert bytes(state.eth1_data.deposit_root) == service.deposit_cache.deposit_root()

@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 from lighthouse_tpu_torch.crypto import bls
+from lighthouse_tpu_torch.crypto.bls12_381 import g2_from_bytes
 from lighthouse_tpu_torch.metrics import REGISTRY
 from lighthouse_tpu_torch.parallel import host_pool
 from lighthouse_tpu_torch.parallel.host_pool import BrokenProcessPool, HostPool
@@ -206,7 +207,7 @@ FORBIDDEN = {
 }
 
 # The units the port submits to the pool (crypto/bls, das/proofs).
-UNITS = {"_prep_chunk", "_hash_g2_chunk", "_msm_chunk", "_sign_chunk", "miller_product", "_prove_shard", "_msm_shard"}
+UNITS = {"_prep_chunk", "_hash_g2_chunk", "_msm_chunk", "_sign_chunk", "miller_product", "_prove_shard", "_msm_shard", "_decompress_g2_chunk"}
 
 
 def _module(path: Path):
@@ -336,3 +337,38 @@ def test_das_cells_and_batch_verdicts_equal_at_pool_sizes_1_and_4(monkeypatch):
         assert (forked > 0) == (size == "4"), (size, forked)
     assert results[0] == results[1]
     assert results[0][1] == (True, False)
+
+
+def test_cuda_staging_decompresses_a_large_batch_on_the_pool(monkeypatch):
+    """The `cuda` backend decompresses the signatures of a batch of at least
+    POOL_DECOMPRESS_MIN sets on the pool, POOL_DECOMPRESS_SETS at a time,
+    into the signature cache (the points the host decompression gives); an
+    encoding that does not decompress is left to the card's staging, which
+    refuses its chunk as before."""
+    import torch
+
+    monkeypatch.setattr("lighthouse_tpu_torch.device._default", torch.device("cpu"))
+    monkeypatch.setenv("LIGHTHOUSE_TPU_HOST_POOL", "2")
+    monkeypatch.setattr(bls, "POOL_DECOMPRESS_MIN", 4)
+    monkeypatch.setattr(bls, "POOL_DECOMPRESS_SETS", 4)
+    host_pool.reset_pool()
+    kps = bls.interop_keypairs(6)
+    msgs = [bytes([i]) * 32 for i in range(6)]
+    sigs = [kp.sk.sign(m).to_bytes() for kp, m in zip(kps, msgs)]
+    bad = bytes([0x9F]) + b"\xff" * 95  # a compressed x above the field modulus
+    sets = [bls.SignatureSet.single(bls.Signature(s), kp.pk, m) for s, kp, m in zip(sigs + [bad], kps + kps[:1], msgs + msgs[:1])]
+    bls._SIG_CACHE.clear()
+    staged = []
+    monkeypatch.setattr(bls, "_decompress_on_pool", lambda part, real=bls._decompress_on_pool: (staged.append(len(part)), real(part))[1])
+    monkeypatch.setattr("lighthouse_tpu_torch.ops.bls381_verify.verify_signature_sets_device_full", lambda chunk, rng=None: True)
+    monkeypatch.setenv("LIGHTHOUSE_TPU_BLS_CHUNK", "2")
+    assert bls._BACKENDS["cuda"].verify_signature_sets(sets)
+    assert staged == [4, 3]
+    for s in sigs:
+        assert bls._SIG_CACHE.has(s)
+        assert bls.Signature(s).point() == g2_from_bytes(s)
+    assert not bls._SIG_CACHE.has(bad)
+    # a small batch stays off the pool
+    staged.clear()
+    assert bls._BACKENDS["cuda"].verify_signature_sets(sets[:3])
+    assert staged == []

@@ -5,8 +5,9 @@ serves forked batches, a peer that goes dark mid-sync, a flaky peer that
 truncates a batch, a stale Status, backfill from a spamming peer, parent
 and single-block lookups) run once with a JAX syncing node and once with
 a port syncing node. The peers they sync from are the same in both runs:
-JAX nodes serving one JAX harness chain, the faulty ones the JAX
-package's FaultyNetworkService. Both harnesses make the same chain under
+port nodes serving one port harness chain, the faulty ones the port's
+FaultyNetworkService (`lighthouse_tpu_torch.testing.sync_faults`); the
+lookups' peers are JAX nodes. Both harnesses make the same chain under
 `fake_crypto`, so imports, head roots, counters and peer-score signs must
 be equal."""
 
@@ -23,6 +24,7 @@ import lighthouse_tpu.metrics as j_metrics
 import lighthouse_tpu.network as j_network
 import lighthouse_tpu.network.sync as j_sync
 import lighthouse_tpu.store as j_store
+import lighthouse_tpu.types as j_types
 import lighthouse_tpu.types.chain_spec as j_spec
 import lighthouse_tpu.types.eth_spec as j_eth
 import lighthouse_tpu.utils.slot_clock as j_clock
@@ -33,11 +35,10 @@ import lighthouse_tpu_torch.metrics as p_metrics
 import lighthouse_tpu_torch.network as p_network
 import lighthouse_tpu_torch.network.sync as p_sync
 import lighthouse_tpu_torch.store as p_store
-import lighthouse_tpu_torch.types as p_types
 import lighthouse_tpu_torch.types.chain_spec as p_spec
 import lighthouse_tpu_torch.types.eth_spec as p_eth
 import lighthouse_tpu_torch.utils.slot_clock as p_clock
-from lighthouse_tpu.testing.sync_faults import FaultPlan, FaultyNetworkService
+from lighthouse_tpu_torch.testing.sync_faults import FaultPlan, FaultyNetworkService
 from lighthouse_tpu_torch import default_device, set_default_device
 
 SIDES = {
@@ -50,6 +51,7 @@ SIDES = {
     )
 }
 JAX = SIDES["jax"]
+PORT = SIDES["port"]
 SLOTS_PER_EPOCH = 8
 
 
@@ -92,9 +94,9 @@ def _stop(*services):
 
 
 def _range_scenario(side, a, plans, cfg=None, extra_slots=0):
-    """B of `side` range-syncs from JAX servers on A's chain, one a plan
+    """B of `side` range-syncs from port servers on A's chain, one a plan
     (None = an honest server), in dial order."""
-    servers = [FaultyNetworkService(a.chain, p).start() if p else JAX.network.NetworkService(a.chain).start() for p in plans]
+    servers = [FaultyNetworkService(a.chain, p).start() if p else PORT.network.NetworkService(a.chain).start() for p in plans]
     b = _harness(side)
     nb = side.network.NetworkService(b.chain, sync_config=cfg or _cfg(side)).start()
     try:
@@ -115,13 +117,15 @@ def _range_scenario(side, a, plans, cfg=None, extra_slots=0):
 
 @pytest.fixture(scope="module")
 def chain_a():
-    """One JAX harness chain, 4 epochs, served by every range scenario."""
-    prev = j_bls.backend_name()
-    j_bls.set_backend("fake_crypto")
+    """One port harness chain, 4 epochs, served by every range scenario."""
+    prev = default_device(), p_bls.backend_setting()
+    set_default_device("cpu")
+    p_bls.set_backend("fake_crypto")
     try:
-        return _harness(JAX, slots=4 * SLOTS_PER_EPOCH)
+        return _harness(PORT, slots=4 * SLOTS_PER_EPOCH)
     finally:
-        j_bls.set_backend(prev)
+        set_default_device(prev[0])
+        p_bls.set_backend(prev[1])
 
 
 RANGE = {
@@ -150,22 +154,22 @@ def test_range_sync_scenarios_equal(scenario, chain_a):
 
 
 def _backfill_scenario(side, spam: bool):
-    """B of `side` boots from a JAX chain's finalized checkpoint (carried
-    across as SSZ) and backfills from an honest or a spamming JAX peer."""
-    h = _harness(JAX, slots=4 * SLOTS_PER_EPOCH, attest=True)
+    """B of `side` boots from a port chain's finalized checkpoint (carried
+    across as SSZ) and backfills from an honest or a spamming port peer."""
+    h = _harness(PORT, slots=4 * SLOTS_PER_EPOCH, attest=True)
     fin = h.chain.finalized_checkpoint
     t = h.chain.types
     block = h.chain._blocks_by_root[fin.root]
     state = h.chain._justified_state_provider(fin.root).copy()
-    if side is not JAX:
+    if side is not PORT:
         fork = t.fork_of_state(state)
-        pt = p_types.build_types(side.E).types_for_fork(fork)
+        pt = j_types.build_types(side.E).types_for_fork(fork)
         state = pt.BeaconState.deserialize(state.serialize())
         block = pt.SignedBeaconBlock.deserialize(block.serialize())
     spec = replace(side.spec.minimal_spec(), altair_fork_epoch=0)
     clock = side.clock.ManualSlotClock(genesis_time=state.genesis_time, seconds_per_slot=spec.seconds_per_slot)
     chain_b = side.chain.BeaconChain.from_checkpoint(side.store.HotColdDB(side.store.MemoryStore()), state, block, spec, side.E, clock)
-    server = (FaultyNetworkService(h.chain, FaultPlan(fork_first=100)) if spam else JAX.network.NetworkService(h.chain)).start()
+    server = (FaultyNetworkService(h.chain, FaultPlan(fork_first=100)) if spam else PORT.network.NetworkService(h.chain)).start()
     nb = side.network.NetworkService(chain_b, sync_config=_cfg(side, epochs_per_batch=1)).start()
     try:
         clock.set_slot(h.chain.head_state.slot)
