@@ -155,8 +155,10 @@ each, any failure ends the run with a non-zero exit code:
    node])``, which proposes every block, attests, aggregates and sends
    sync-committee messages over HTTP until the chain finalizes epoch 2;
    one key deleted through the keymanager API signs nothing after, and a
-   conflicting attestation is refused (``NotSafe``); (b) at 1M
-   validators, a ``BeaconChain`` from phase 6's post-state and block
+   conflicting attestation is refused (``NotSafe``) ((a) needs nothing of
+   the phases before: it runs in phase 15's spawned process, after the
+   fleets); (b) at 1M validators, a ``BeaconChain`` from phase 6's
+   post-state and block
    (``from_checkpoint``, the engine API as in (a)) and a VC in-process
    with every key phases 5–6 minted: one slot's duties, signatures,
    aggregates and sync messages, all accepted by the node. Each step's
@@ -194,7 +196,21 @@ each, any failure ends the run with a non-zero exit code:
    of phase 5's keys signed on the card: a valid genesis whose deposits
    pass one ``verify_signature_sets`` of 512 chunks, its state root the
    host-lane fold's. Each step's seconds and card launches on a line of
-   its own with the card's name and power limit.
+   its own with the card's name and power limit;
+15. the adversarial fleet (``testing/testnet.py``) with every node's BLS
+   backend ``cuda``, in a spawned process started after phase 9 and read
+   after phase 11 (it then runs phase 12 (a)): (a) the smoke scenario, 3 nodes and 24 interop
+   validators on the minimal preset, one node partitioned from two, healed,
+   one head and finality advancing; (b) column withholding on Deneb from
+   genesis with 64-element blobs over 16 columns, the KZG engine's dev setup
+   on the card: 75% withheld refused while the chain finalizes past it,
+   37.5% withheld reconstructed and imported; (c) a proposer's double
+   proposal gossiped to the node with the slasher, exactly one
+   ProposerSlashing. Each passes the JAX tests' checks and launched every
+   BLS kernel; a line a scenario with its seconds, slots, recovery slots,
+   oracle passes, fault injections and launches, with the card's name and
+   power limit. Phase 3 holds K8 and K9 to their plain versions at this
+   64-point domain too.
 
 Then one JSON line with every kernel's numbers, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -309,7 +325,8 @@ def bary_fr_muls(m: int, n: int) -> int:
     """The least Fr multiplications of m barycentric evaluations of n
     points: the fraction trees, each blob's finish, the batch inversion of
     the m denominators."""
-    return (FR_MULS["bary_term"] * n - 3 + FR_MULS["bary_blob"] + FR_MULS["batch_inv"]) * m + FR_MULS["inv"]
+    finish = FR_MULS["bary_blob"] - 12 + n.bit_length() - 1  # z^n: log2 n squarings
+    return (FR_MULS["bary_term"] * n - 3 + finish + FR_MULS["batch_inv"]) * m + FR_MULS["inv"]
 
 # The epoch sweep (derived in csrc/epoch_sweep.cu's header): the bytes a
 # validator moves (six u64 columns, the slashed and participation bytes
@@ -3463,6 +3480,12 @@ def _ptxas_of(lib, *kernels: str) -> dict:
     return {k: v for k, v in usage.items() if any(name in k for name in kernels)}
 
 
+# The blob counts of the barycentric checks by domain, the last one also
+# with one z on the domain: at 4096 a proof's, a block's and a segment's;
+# at 64 (phase 15's DasTestnetEthSpec) a proof's and a fleet block's two.
+KZG_CHECK_BLOBS = {4096: (1, BLOBS_PER_BLOCK, BLOBS_PER_BLOCK * SEGMENT_BLOCKS), 64: (1, 2)}
+
+
 def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
     """The KZG kernels at the main path's shapes, each equal to its plain
     version on the card and to the host for one case: the barycentric
@@ -3470,7 +3493,8 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
     one z on the domain) and [192, 4096] (a segment), the
     quotient at 4096 lanes (z off the domain and on it), the MSM's table of
     the 4096 setup points with edge cases and the fixed-base MSM over it;
-    with times, plain times and bounds."""
+    with times, plain times and bounds. On phase 15's 64-point dev setup
+    the same checks run at [1, 64] and [2, 64] (KZG_CHECK_BLOBS)."""
     from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq, pt_mul, to_affine
     from lighthouse_tpu_torch.crypto.bls12_381.fields import R
 
@@ -3504,11 +3528,12 @@ def phase_kzg_kernel_checks(kzg, seed: int) -> dict:
 
     # a proof's one blob, a block's six, a segment's 192, and six with one
     # z on the domain (its y is 0; the others as off the domain)
-    for m, on_domain in ((1, None), (BLOBS_PER_BLOCK, None), (BLOBS_PER_BLOCK * SEGMENT_BLOCKS, None), (BLOBS_PER_BLOCK, 2)):
+    counts = KZG_CHECK_BLOBS[n]
+    for m, on_domain in [(m, None) for m in counts] + [(counts[1], min(2, counts[1] - 1))]:
         words = np.stack([k_fr.words_from_bytes(b, n) for b in kzg_blobs(rng, m, n)])
         zs = fr_scalars(rng, m)
         if on_domain is not None:
-            zs[on_domain] = setup.roots_brp[77]
+            zs[on_domain] = setup.roots_brp[77 % n]
         ev, zt = k_fr.as_i32(words).to(dev), k_fr.as_i32(k_fr.fr_to_words(zs)).to(dev)
         got = check(
             f"barycentric_eval[{m},{n}]" + ("" if on_domain is None else ":on_domain"),
@@ -4298,11 +4323,12 @@ def reset_chain_counts() -> None:
     k_ms.reset_counts()
 
 
-def _stepper(tag: str, smi: str):
+def _stepper(tag: str, smi: str, sink=None):
     """A phase's step timer: `step(name, fn, detail=None)` runs `fn`,
     keeps its seconds (after a card sync) in `steps` and the kernels it
     launched in `launches`, and prints both on a `tag` line with the
-    card's name and power limit, with `detail()`'s record where given."""
+    card's name and power limit, with `detail()`'s record where given
+    (`sink(line)` takes the lines instead, in a spawned process)."""
     steps, launches, details = {}, {}, {}
 
     def step(name, fn, detail=None):
@@ -4315,7 +4341,7 @@ def _stepper(tag: str, smi: str):
         launches[name] = {k: v - before[k] for k, v in chain_counts().items() if v != before[k]}
         details[name] = detail() if detail is not None else None
         line = {"phase": tag, "step": name, "s": steps[name], "launches": launches[name], "card": smi}
-        emit(line | ({"detail": details[name]} if details[name] is not None else {}))
+        (sink or emit)(line | ({"detail": details[name]} if details[name] is not None else {}))
         return res
 
     return steps, launches, details, step
@@ -5127,49 +5153,15 @@ def _vc_keypairs(state, sk_of: dict) -> list:
     ]
 
 
-def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_keys: dict, seed: int, smi: str) -> tuple[dict, dict]:
-    """The validator client on the card, with the BLS backend following
-    the device (`cuda`):
-    (a) a VC-driven chain to finality on the minimal preset, every hop over
-        HTTP on 127.0.0.1: a BeaconChainHarness genesis (Altair to Deneb at
-        epoch 0, 64 interop validators) whose execution layer is an
-        EngineWatchdog over an HttpEngineClient, every newPayload,
-        forkchoiceUpdated and getPayload a JSON-RPC request with a JWT to a
-        MockEngineServer serving the port's mock engine; the chain behind
-        HttpApiServer(port=0). The 64 keys written as EIP-2335 keystores
-        and imported through the keymanager API (bearer token) into a
-        ValidatorClient(None, node=BeaconNodeFallback([closed port, the
-        node])), each candidate an HttpBeaconNode. The VC runs every slot:
-        it proposes every block (produce_block, publish_block), attests,
-        aggregates and sends sync-committee messages through the API. After
-        epoch 2 one key is deleted through the keymanager API (its EIP-3076
-        interchange returned); the VC runs on until the chain has finalized
-        epoch 2. Checks: every block the VC's and imported, each payload
-        over the engine API; justified and finalized advance; the watchdog
-        stayed ONLINE; the closed port's candidate offline; the deleted
-        key signed nothing after; a second, conflicting attestation for a
-        slot already signed raises NotSafe and nothing reaches the node;
-    (b) a VC with every key phases 5-6 minted, attesting at 1M validators
-        (mainnet preset) over the in-process LocalBeaconNode: a BeaconChain
-        from phase 6's post-state and block (from_checkpoint over
-        HotColdDB(MemoryStore())), with the engine API as in (a); on_slot of
-        the block's slot + 1: bulk duties from the epoch duty table, every
-        held key with a duty signs through sign_batch under one
-        slashing-protection transaction and publishes, the selected
-        aggregators aggregate, the sync-committee keys sign; the node
-        accepts all of it; if the slot's proposer is held, it proposes
-        through the engine API. (b) is in-process because HttpBeaconNode
-        fetches the whole state as SSZ at every head_state, at least four
-        times a slot (phase 11 (d): ~31 s a fetch at 1M).
-    Each step's seconds on its own line with the card's name and power
-    limit; the kernels each step launched. Returns the record and (b)'s
-    node: its chain, and the attestations and aggregates the VC published
-    (phase 13 gossips them)."""
+def vc_minimal_over_http(seed: int, smi: str) -> dict:
+    """Phase 12 (a) (phase_vc_main_path's docstring), run in the spawned
+    process of start_beside_10_11 with the BLS backend following the
+    device: its record, its steps' seconds and launches, their lines for
+    the parent to print, and its counts (set to 0 just before it)."""
     from dataclasses import replace
 
     from lighthouse_tpu_torch import default_device
     from lighthouse_tpu_torch.beacon_chain import BeaconChainHarness
-    from lighthouse_tpu_torch.beacon_chain.chain import BeaconChain
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.key_derivation import validator_keypair_path
     from lighthouse_tpu_torch.crypto.keystore import Keystore
@@ -5179,11 +5171,8 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
     from lighthouse_tpu_torch.metrics import REGISTRY
     from lighthouse_tpu_torch.state_processing import per_slot_processing
     from lighthouse_tpu_torch.state_processing.accessors import get_beacon_proposer_index
-    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
     from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
-    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
-    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
-    from lighthouse_tpu_torch.validator_client import LocalBeaconNode, ValidatorClient
+    from lighthouse_tpu_torch.validator_client import ValidatorClient
     from lighthouse_tpu_torch.validator_client.beacon_node_fallback import BeaconNodeFallback, CandidateHealth
     from lighthouse_tpu_torch.validator_client.http_api import KeymanagerServer
     from lighthouse_tpu_torch.validator_client.slashing_protection import NotSafe
@@ -5191,28 +5180,14 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
     on_card = default_device().type == "cuda"
     if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
         raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
-    steps, launches, _, step = _stepper("vc_step", smi)
+    lines = []
+    steps, launches, _, step = _stepper("vc_step", smi, sink=lines.append)
 
     def counter(name: str) -> float:
         return REGISTRY.counter(name).value()
 
-    rng = np.random.default_rng(seed + 41)
-    jwt = rng.bytes(32)
-    token = rng.bytes(32).hex()
-    spec = mainnet_spec()
-    # prepared outside the counted run: phase 6's post-state, its block
-    T = types.types_for_fork("deneb")
-    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
-    slot_b = int(signed.message.slot)
-    _, post = _import_rep(pre, signed, spec, E)
-    if bytes(post.hash_tree_root()) != post_root:
-        raise AssertionError("(b) the post-state's root is not phase 6's post-state root")
+    jwt, token = _vc_secrets(seed)
     servers = []
-
-    # the main path: counts at zero just before, read just after
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
     reset_chain_counts()
     try:
         # (a) the node, its engine over JWT, the VC over HTTP
@@ -5352,11 +5327,100 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
         }
         if a_out["justified_epoch"] <= VC_FINALIZED_EPOCH or a_out["finalized_epoch"] < VC_FINALIZED_EPOCH:
             raise AssertionError(f"(a) justified {a_out['justified_epoch']}, finalized {a_out['finalized_epoch']}")
-        for srv in list(servers):
+    finally:
+        for srv in servers:
             srv.stop()
-            servers.remove(srv)
-        del h, chain_a, vc, head_a, head_state
+    if on_card:
+        got = {k: sum(v.get(k, 0) for v in launches.values()) for k in ("epoch_sweep", *BLS_KERNELS)}
+        missing = [k for k, v in got.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"(a) launched no {missing}")
+    return {"a_out": a_out, "steps_s": steps, "launches_per_step": launches, "launches": chain_counts(), "lines": lines}
 
+
+def _vc_secrets(seed: int) -> tuple[bytes, str]:
+    """Phase 12's engine-API JWT secret and keymanager token, from `seed`."""
+    rng = np.random.default_rng(seed + 41)
+    return rng.bytes(32), rng.bytes(32).hex()
+
+
+def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_keys: dict, seed: int, smi: str, vc_a: dict) -> tuple[dict, dict]:
+    """The validator client on the card, with the BLS backend following
+    the device (`cuda`):
+    (a) a VC-driven chain to finality on the minimal preset, every hop over
+        HTTP on 127.0.0.1: a BeaconChainHarness genesis (Altair to Deneb at
+        epoch 0, 64 interop validators) whose execution layer is an
+        EngineWatchdog over an HttpEngineClient, every newPayload,
+        forkchoiceUpdated and getPayload a JSON-RPC request with a JWT to a
+        MockEngineServer serving the port's mock engine; the chain behind
+        HttpApiServer(port=0). The 64 keys written as EIP-2335 keystores
+        and imported through the keymanager API (bearer token) into a
+        ValidatorClient(None, node=BeaconNodeFallback([closed port, the
+        node])), each candidate an HttpBeaconNode. The VC runs every slot:
+        it proposes every block (produce_block, publish_block), attests,
+        aggregates and sends sync-committee messages through the API. After
+        epoch 2 one key is deleted through the keymanager API (its EIP-3076
+        interchange returned); the VC runs on until the chain has finalized
+        epoch 2. Checks: every block the VC's and imported, each payload
+        over the engine API; justified and finalized advance; the watchdog
+        stayed ONLINE; the closed port's candidate offline; the deleted
+        key signed nothing after; a second, conflicting attestation for a
+        slot already signed raises NotSafe and nothing reaches the node.
+        (a) needs nothing of the phases before it: it runs in the spawned
+        process beside phases 10-11 (vc_minimal_over_http), and `vc_a` is
+        its result, read here;
+    (b) a VC with every key phases 5-6 minted, attesting at 1M validators
+        (mainnet preset) over the in-process LocalBeaconNode: a BeaconChain
+        from phase 6's post-state and block (from_checkpoint over
+        HotColdDB(MemoryStore())), with the engine API as in (a); on_slot of
+        the block's slot + 1: bulk duties from the epoch duty table, every
+        held key with a duty signs through sign_batch under one
+        slashing-protection transaction and publishes, the selected
+        aggregators aggregate, the sync-committee keys sign; the node
+        accepts all of it; if the slot's proposer is held, it proposes
+        through the engine API. (b) is in-process because HttpBeaconNode
+        fetches the whole state as SSZ at every head_state, at least four
+        times a slot (phase 11 (d): ~31 s a fetch at 1M).
+    Each step's seconds on its own line with the card's name and power
+    limit; the kernels each step launched. Returns the record and (b)'s
+    node: its chain, and the attestations and aggregates the VC published
+    (phase 13 gossips them)."""
+    from lighthouse_tpu_torch import default_device
+    from lighthouse_tpu_torch.beacon_chain.chain import BeaconChain
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_processing import per_slot_processing
+    from lighthouse_tpu_torch.state_processing.accessors import get_beacon_proposer_index
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+    from lighthouse_tpu_torch.validator_client import LocalBeaconNode, ValidatorClient
+
+    on_card = default_device().type == "cuda"
+    if bls.backend_setting() is not None or bls.backend_name() != ("cuda" if on_card else "host"):
+        raise AssertionError(f"the BLS backend is {bls.backend_name()!r} (set: {bls.backend_setting()!r})")
+    for line in vc_a["lines"]:
+        emit(line)
+    steps, launches, _, step = _stepper("vc_step", smi)
+    steps.update(vc_a["steps_s"])
+    launches.update(vc_a["launches_per_step"])
+    a_out = vc_a["a_out"]
+    jwt, _ = _vc_secrets(seed)
+    spec = mainnet_spec()
+    # prepared outside the counted run: phase 6's post-state, its block
+    T = types.types_for_fork("deneb")
+    signed = T.SignedBeaconBlock.deserialize(signed_bytes)
+    slot_b = int(signed.message.slot)
+    _, post = _import_rep(pre, signed, spec, E)
+    if bytes(post.hash_tree_root()) != post_root:
+        raise AssertionError("(b) the post-state's root is not phase 6's post-state root")
+    servers = []
+
+    # the main path: counts at zero just before, read just after
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_chain_counts()
+    try:
         # (b) at 1M: the node from phase 6's post-state, the VC in-process
         _, engine_calls_b, watchdog_b = _engine_stack(types, E, jwt, servers)
         clock = ManualSlotClock(genesis_time=int(post.genesis_time), seconds_per_slot=spec.seconds_per_slot)
@@ -5409,14 +5473,15 @@ def phase_vc_main_path(pre, signed_bytes: bytes, post_root: bytes, types, E, vc_
         for srv in servers:
             srv.stop()
 
-    counts = chain_counts()
+    # (b)'s counts here, (a)'s from its process
+    counts = {k: v + vc_a["launches"][k] for k, v in chain_counts().items()}
     peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
     if on_card:
-        for part, names in (("a", [n for n in steps if n.startswith("a_")]), ("b", [n for n in steps if n.startswith("b_")])):
-            got = {k: sum(launches[n].get(k, 0) for n in names) for k in ("epoch_sweep", *BLS_KERNELS)}
-            missing = [k for k, v in got.items() if v <= 0 and (part == "a" or k != "epoch_sweep")]
-            if missing:
-                raise AssertionError(f"({part}) launched no {missing}")
+        names = [n for n in steps if n.startswith("b_")]
+        got = {k: sum(launches[n].get(k, 0) for n in names) for k in BLS_KERNELS}
+        missing = [k for k, v in got.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"(b) launched no {missing}")
     out = {
         "phase": "vc_main_path",
         "backend": bls.backend_name(),
@@ -6322,9 +6387,10 @@ def start_slasher_at_scale(state, E, sk_of: dict, seed: int, store_dir: str):
     return pool.submit(slasher_at_scale, *args), pool, offenders
 
 
-def stop_slasher_at_scale(slasher_run) -> None:
-    """End start_slasher_at_scale's process, done or not."""
-    _, pool, _ = slasher_run
+def stop_spawned(run) -> None:
+    """End the process of start_slasher_at_scale or start_beside_10_11 (`run`:
+    its future, its executor, ...), done or not."""
+    pool = run[1]
     for proc in list(getattr(pool, "_processes", {}).values()):
         proc.kill()
     pool.shutdown(wait=True, cancel_futures=True)
@@ -6629,6 +6695,192 @@ def phase_slasher_main_path(state, types, E, sk_of: dict, slasher_run, smi: str)
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the adversarial fleet (testing/testnet.py) on the card
+# ---------------------------------------------------------------------------
+
+# (name, runner, its keyword arguments beside bls_backend): the scenarios
+# of tests/test_testnet_scenarios.py outside `slow` whose runners take the
+# nodes' backend, at their own seeds and sizes (3 nodes, 24 interop
+# validators, minimal preset)
+FLEET_SCENARIOS = (
+    ("a_smoke", "run_smoke_scenario", {}),
+    ("b_column_withholding", "run_column_withholding_scenario", {"kzg": "dev"}),
+    ("c_equivocation", "run_equivocation_scenario", {}),
+)
+# seconds the parent waits for the spawned process once phase 11 is done
+FLEET_WAIT = 900
+
+
+def _fleet_check(name: str, report: dict, S: int, faults: dict) -> None:
+    """The JAX package's own checks of each scenario
+    (tests/test_testnet_scenarios.py): recovery within six epochs, finality
+    moving, exactly one slashing, the column regimes' refusal and
+    reconstruction."""
+    if name == "a_smoke":
+        ok = report["recovery_slots"] <= 6 * S and report["recovery_to_finality_s"] > 0
+    elif name == "b_column_withholding":
+        ok = (
+            report["sampling_failures"] >= 1
+            and report["reconstructions"] >= 1
+            and len(report["withheld_refusal"]) == 12
+            and report["recovery_slots"] <= 6 * S
+            and faults["withhold"] >= 2
+        )
+    else:
+        ok = report["slashings_emitted"] == 1 and report["slasher_cycles"] >= 1
+    if not ok:
+        raise AssertionError(f"({name[0]}) the scenario's checks failed: {report}")
+
+
+def fleet_scenarios(smi: str) -> dict:
+    """Phase 15's fleets, in a spawned process (its own BLS backend, which
+    ClientBuilder sets process-wide, and its own interpreter beside the
+    parent's phases): the kernels that phase_build built are loaded from
+    the build cache, never built; one valid batch verify warms the `cuda`
+    backend; then each of FLEET_SCENARIOS runs with bls_backend="cuda",
+    every kernel counter set to 0 just before it and read just after.
+    Returns each scenario's report, seconds, slots, oracle passes, fault
+    injections by kind and launches."""
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.metrics import REGISTRY
+    from lighthouse_tpu_torch.testing import testnet as tn
+    from lighthouse_tpu_torch.types import MinimalEthSpec, minimal_spec
+
+    libs = [k_sha256.LIB, k_g.LIB, k_pair.LIB, k_htc.LIB, k7.LIB, k_fr.LIB, k_msm.LIB, k_ms.LIB]
+    for lib in libs:
+        lib.load()
+    built = [lib.info["so"] for lib in libs if lib.info["built"]]
+    if built:
+        raise AssertionError(f"the fleet's process built {built}: phase_build's cache was not found")
+    t0 = time.perf_counter()
+    bls.set_backend("cuda")
+    kp = bls.interop_keypairs(1)[0]
+    msg = b"\x15" * 32
+    if not bls.verify_signature_sets([bls.SignatureSet.single(kp.sk.sign(msg), kp.pk, msg)]):
+        raise AssertionError("the warm-up batch verify failed on the card")
+    out = {"warm_s": time.perf_counter() - t0, "scenarios": {}}
+    counter = REGISTRY.counter
+    altair = replace(minimal_spec(), altair_fork_epoch=0)
+    deneb = replace(altair, bellatrix_fork_epoch=0, capella_fork_epoch=0, deneb_fork_epoch=0)
+    create = vars(tn.Testnet)["create"]
+    for name, runner, kwargs in FLEET_SCENARIOS:
+        das = name == "b_column_withholding"
+        spec, E = (deneb, tn.DasTestnetEthSpec) if das else (altair, MinimalEthSpec)
+        nets, backends = [], []
+
+        def keep(cls, *args, **kw):
+            nets.append(create.__func__(cls, *args, **kw))
+            backends.append(bls.backend_name())  # ClientBuilder set it
+            return nets[-1]
+
+        faults0 = {k: counter("testnet_fault_injections_total").value(kind=k) for k in tn.FAULT_KINDS}
+        passes0 = counter("scenario_invariant_checks_total").value(result="pass")
+        tn.Testnet.create = classmethod(keep)
+        reset_chain_counts()
+        t0 = time.perf_counter()
+        try:
+            report = getattr(tn, runner)(spec, E, bls_backend="cuda", **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            tn.Testnet.create = create
+        launches = chain_counts()
+        backends.append(bls.backend_name())
+        if set(backends) != {"cuda"}:
+            raise AssertionError(f"({name[0]}) the fleet ran under {sorted(set(backends))}")
+        faults = {k: counter("testnet_fault_injections_total").value(kind=k) - v for k, v in faults0.items()}
+        _fleet_check(name, report, E.SLOTS_PER_EPOCH, faults)
+        missing = [k for k in BLS_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"({name[0]}) launched no {missing}")
+        (net,) = nets
+        out["scenarios"][name] = {
+            "runner": runner,
+            "nodes": len(net.nodes),
+            "s": seconds,
+            "slots": int(net.nodes[0].client.slot_clock.now()),
+            "recovery_slots": report.get("recovery_slots"),
+            "oracle_passes": counter("scenario_invariant_checks_total").value(result="pass") - passes0,
+            "fault_injections": {k: v for k, v in faults.items() if v},
+            "report": report,
+            "launches": launches,
+            "card": smi,
+        }
+    bls.set_backend(None)
+    return out
+
+
+def beside_phases_10_11(seed: int, smi: str) -> dict:
+    """The spawned process's work, none of it needing the phases before:
+    phase 15's fleets, then phase 12 (a); the host pool's workers stopped
+    after."""
+    try:
+        return {"fleet": fleet_scenarios(smi), "vc_a": vc_minimal_over_http(seed, smi)}
+    finally:
+        host_pool.reset_pool()
+
+
+def start_beside_10_11(seed: int, smi: str):
+    """beside_phases_10_11 started in a spawned process (its own BLS
+    backend, which ClientBuilder sets process-wide, and its own
+    interpreter's host work beside the parent's): (future, executor)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool.submit(beside_phases_10_11, seed, smi), pool
+
+
+def phase_fleet_main_path(beside, smi: str) -> tuple[dict, dict]:
+    """Phase 15: the adversarial fleet with its nodes verifying on the
+    card, run in a spawned process (fleet_scenarios) beside phases 10-11:
+    (a) run_smoke_scenario: 3 nodes, 24 interop validators, Altair at
+        genesis; one node partitioned from two, healed, one head and
+        finality advancing;
+    (b) run_column_withholding_scenario: Deneb from genesis on
+        DasTestnetEthSpec (64-element blobs, 16 columns), the KZG engine on
+        the insecure dev setup of 64 points on the card: 75% of a blob
+        block's columns withheld refused while the chain finalizes past it,
+        37.5% withheld reconstructed and imported;
+    (c) run_equivocation_scenario: a double proposal over gossip, exactly
+        one ProposerSlashing from the observer's SlasherService.
+    Each passes the JAX tests' checks and launched every BLS kernel. Here
+    the result is read: a line a scenario with its seconds, slots,
+    recovery slots, oracle passes, fault injections by kind and launches,
+    with the card's name and power limit, and how long this process
+    waited for the spawned process (`beside`, from start_beside_10_11),
+    which then also ran phase 12 (a). Returns the phase's record and phase
+    12 (a)'s result."""
+    future, _ = beside
+    t0 = time.perf_counter()
+    done = future.result(timeout=FLEET_WAIT)
+    waited = time.perf_counter() - t0
+    run, vc_a = done["fleet"], done["vc_a"]
+    launches = {}
+    for name, sc in run["scenarios"].items():
+        emit({"phase": "fleet_scenario", "scenario": name} | {k: v for k, v in sc.items() if k != "report"})
+        for k, v in sc["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    b = run["scenarios"]["b_column_withholding"]["launches"]
+    out = {
+        "phase": "fleet_main_path",
+        "backend": "cuda",
+        "warm_s": run["warm_s"],
+        "scenarios": {k: {kk: v for kk, v in sc.items() if kk != "launches"} for k, sc in run["scenarios"].items()},
+        "b_kzg_launches": {k: b[k] for k in ("multi_pairing", "barycentric_eval", "quotient", "msm", "msm_table")},
+        "launches": launches,
+        "beside_phases_10_11_s": run["warm_s"] + sum(sc["s"] for sc in run["scenarios"].values()),
+        "phase_12_a_beside_s": sum(vc_a["steps_s"].values()),
+        "waited_here_s": waited,
+        "card": smi,
+    }
+    emit(out)
+    return out, vc_a
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -6659,6 +6911,8 @@ def main(argv=None) -> int:
     sweep_check = phase_epoch_sweep_check(args.seed)
     kzg = ceremony_kzg()
     kzg_checks = phase_kzg_kernel_checks(kzg, args.seed)
+    # K8 and K9 at phase 15's domain: the 64-point dev setup of DasTestnetEthSpec
+    kzg64_checks = phase_kzg_kernel_checks(Kzg(TrustedSetup.insecure_dev(64)), args.seed)
     sharded_checks = phase_sharded_kernel_checks(kzg, args.seed)
     main_path, state = phase_main_path(N_VALIDATORS, UPDATES, args.seed)
     types = build_types(MainnetEthSpec)
@@ -6676,13 +6930,21 @@ def main(argv=None) -> int:
     sharded = phase_sharded_main_path(state, kzg, args.seed)
     # phase 6's pre-state (with its keys) upgraded to Electra, on a copy
     electra = phase_electra_main_path(state, types, MainnetEthSpec, sk_of, args.seed, commitments)
-    # phase 6's pre-state and block through the chain's entry points
-    post_root = bytes.fromhex(transition["reps"][0]["root"])
-    chain = phase_chain_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, args.seed, smi)
-    # the same block and its refused copy through the Beacon API over HTTP
-    api = phase_api_main_path(state, signed, tampered, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, smi)
-    # the validator client: (a) to finality over HTTP, (b) phase 6's keys at 1M
-    vc, vc_node = phase_vc_main_path(state, signed, post_root, types, MainnetEthSpec, vc_keys, args.seed, smi)
+    # phase 15's fleets with their nodes verifying on the card, then phase 12
+    # (a)'s minimal VC over HTTP, in a spawned process beside phases 10-11:
+    # phase 6's pre-state and block through the chain's entry points, and the
+    # same block and its refused copy through the Beacon API over HTTP
+    beside = start_beside_10_11(args.seed, smi)
+    try:
+        post_root = bytes.fromhex(transition["reps"][0]["root"])
+        chain = phase_chain_main_path(state, signed, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, args.seed, smi)
+        api = phase_api_main_path(state, signed, tampered, post_root, kzg, blobs, types, MainnetEthSpec, sk_of, smi)
+        fleet, vc_a = phase_fleet_main_path(beside, smi)
+    finally:
+        stop_spawned(beside)
+    # the validator client: (a) to finality over HTTP (run beside phases
+    # 10-11), (b) phase 6's keys at 1M
+    vc, vc_node = phase_vc_main_path(state, signed, post_root, types, MainnetEthSpec, vc_keys, args.seed, smi, vc_a)
     # the node: `bn` as users start it, nodes over TCP, phase 12 (b)'s
     # attestations gossiped at 1M; beside it, in a spawned process, phase 14
     # (b)'s slasher at 1M validators through a store; then phase 14: the
@@ -6695,7 +6957,7 @@ def main(argv=None) -> int:
             del vc_node
             slasher = phase_slasher_main_path(state, types, MainnetEthSpec, registry_keys, slasher_run, smi)
         finally:
-            stop_slasher_at_scale(slasher_run)
+            stop_spawned(slasher_run)
     host_pool.reset_pool()  # stop the host pool's workers
 
     emit(
@@ -6714,6 +6976,7 @@ def main(argv=None) -> int:
                     "launches_vc": vc["launches"]["sha256_rows"],
                     "launches_node": node["launches"]["sha256_rows"],
                     "launches_slasher": slasher["launches"]["sha256_rows"],
+                    "launches_fleet": fleet["launches"]["sha256_rows"],
                     "max_abs_err": checks["max_abs_err"],
                     "ms": checks["ms"],
                     "plain_ms": checks["plain_ms"],
@@ -6737,6 +7000,7 @@ def main(argv=None) -> int:
                     "launches_vc": vc["launches"][name],
                     "launches_node": node["launches"][name],
                     "launches_slasher": slasher["launches"][name],
+                    "launches_fleet": fleet["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in bls_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -6802,6 +7066,7 @@ def main(argv=None) -> int:
                     "launches_vc": vc["launches"]["epoch_sweep"],
                     "launches_node": node["launches"]["epoch_sweep"],
                     "launches_slasher": slasher["launches"]["epoch_sweep"],
+                    "launches_fleet": fleet["launches"]["epoch_sweep"],
                     "max_abs_err": sweep_check["max_abs_err"],
                     "ms": sweep_check["ms"],
                     "plain_ms": sweep_check["plain_ms"],
@@ -6826,9 +7091,18 @@ def main(argv=None) -> int:
                     "launches_vc": vc["launches"][name],
                     "launches_node": node["launches"][name],
                     "launches_slasher": slasher["launches"][name],
+                    "launches_fleet": fleet["launches"][name],
                     "max_abs_err": max(
-                        c["max_abs_err"] for k, c in kzg_checks["kernels"].items() if k.split("[")[0] == name
+                        c["max_abs_err"]
+                        for checks_n in (kzg_checks, kzg64_checks)
+                        for k, c in checks_n["kernels"].items()
+                        if k.split("[")[0] == name
                     ),
+                    # phase 15's 64-point domain (phase 3's checks on the dev setup)
+                    "max_abs_err_64": max(
+                        c["max_abs_err"] for k, c in kzg64_checks["kernels"].items() if k.split("[")[0] == name
+                    ),
+                    "ms_64": kzg64_checks["kernels"][case64]["ms"],
                     **{
                         key: kzg_checks["kernels"][case][key]
                         for key in ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -6855,9 +7129,10 @@ def main(argv=None) -> int:
                         else {}
                     ),
                 }
-                for (name, (_, src, replaces)), case in zip(
+                for (name, (_, src, replaces)), case, case64 in zip(
                     KZG_KERNELS.items(),
                     (f"barycentric_eval[{BLOBS_PER_BLOCK},4096]", "quotient[4096]", "msm[4096]", "msm_table[4096]"),
+                    ("barycentric_eval[2,64]", "quotient[64]", "msm[64]", "msm_table[64]"),
                 )
             ]
             + [
@@ -6872,6 +7147,7 @@ def main(argv=None) -> int:
                     "launches_vc": vc["launches"][name],
                     "launches_node": node["launches"][name],
                     "launches_slasher": slasher["launches"][name],
+                    "launches_fleet": fleet["launches"][name],
                     "max_abs_err": max(
                         c["max_abs_err"] for k, c in sharded_checks["kernels"].items() if k.split("[")[0] == name
                     ),
@@ -6937,6 +7213,7 @@ def main(argv=None) -> int:
                     "launches_vc": vc["launches"]["g1_scalar_mul_wide64"],
                     "launches_node": node["launches"]["g1_scalar_mul_wide64"],
                     "launches_slasher": slasher["launches"]["g1_scalar_mul_wide64"],
+                    "launches_fleet": fleet["launches"]["g1_scalar_mul_wide64"],
                     "max_abs_err": sharded["b_rlc_sum"]["max_abs_err"],
                     "ms": sharded["b_rlc_sum"]["kernels_ms"],
                     "plain_ms": sharded["b_rlc_sum"]["plain_ms"],

@@ -1237,10 +1237,14 @@ class NetworkService:
 
     def _reprocess_attestation(self, att):
         """Reprocess-queue re-fire: the unknown block imported, so the held
-        attestation gets its real verification pass now."""
-        results = self.chain.process_attestation_batch([att])
-        if results and isinstance(results[0], Exception):
-            raise results[0]  # worker counts it in beacon_processor_errors
+        attestation gets its real verification pass now. Its verdict (an
+        AttestationError: it became a duplicate while held, or left its
+        window) drops it, as the gossip path's verdicts drop theirs; only
+        an exception that escapes verification is an internal error, which
+        the worker counts in beacon_processor_errors_total. (The JAX
+        package raises the verdict too, so a fleet's zero-internal-error
+        invariant failed on a routine duplicate after a heal.)"""
+        self.chain.process_attestation_batch([att])
 
     def _decode_gossip_aggregate(self, data: bytes):
         return self.chain.types.SignedAggregateAndProof.deserialize(data)
@@ -1275,7 +1279,13 @@ class NetworkService:
             raise GossipIgnore("unknown beacon block root") from e
 
     def _reprocess_aggregate(self, agg):
-        self.chain.process_aggregate(agg)
+        """As _reprocess_attestation: a verdict drops the held aggregate."""
+        from ..beacon_chain.attestation_verification import AttestationError
+
+        try:
+            self.chain.process_aggregate(agg)
+        except AttestationError:
+            pass
 
     # exits/slashings are spec-verified (signatures included) against the
     # head state before pooling — an unverifiable op would otherwise be

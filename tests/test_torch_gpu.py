@@ -1031,3 +1031,111 @@ def test_genesis_deposit_batch_of_16384_on_the_card_without_fallback(cuda):
     assert K5.COUNTS["hash_to_g2"] - before == count // 32
     assert is_valid_genesis_state(state, spec, E) and len(state.validators) == count
     assert bytes(state.eth1_data.deposit_root) == service.deposit_cache.deposit_root()
+
+
+# ---------------------------------------------------------------------------
+# The adversarial fleet's shapes (chip_smoke phase 15)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m, on_domain", [(1, None), (2, None), (2, 1)])
+def test_kzg_barycentric_at_the_fleet_domain_of_64_points(cuda, m, on_domain):
+    """K8's barycentric evaluation over DasTestnetEthSpec's 64-point domain
+    (one block of terms, most of its threads empty): equal to its plain
+    version and to the host formula, y = 0 for a z on the domain."""
+    from chip_smoke import fr_scalars, kzg_blobs
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    n = 64
+    rng = np.random.default_rng(64 + m)
+    roots = _domain(n)
+    words = np.stack([K8.words_from_bytes(b, n) for b in kzg_blobs(rng, m, n)])
+    zs = fr_scalars(rng, m)
+    if on_domain is not None:
+        zs[on_domain] = roots[13]
+    args = [K8.as_i32(a).to(cuda) for a in (words, K8.mont_limbs(roots), K8.fr_to_words(zs))]
+    got = _launched(K8.COUNTS, "barycentric_eval", lambda: K8.barycentric_eval(*args))
+    assert torch.equal(got, K8.barycentric_eval_plain(*args))
+    ys = K8.fr_from_words(got.cpu().numpy())
+    for j in range(m):
+        p = K8.fr_from_words(words[j])
+        want = sum(pi * w * pow(zs[j] - w, R - 2, R) for pi, w in zip(p, roots)) % R
+        assert ys[j] == (0 if j == on_domain else want * (pow(zs[j], n, R) - 1) * pow(n, R - 2, R) % R)
+
+
+@pytest.mark.parametrize("hit", [None, 0, 63])
+def test_kzg_quotient_at_the_fleet_domain_of_64_points(cuda, hit):
+    """K8's quotient over 64 lanes (one block of 128, half of it past n):
+    equal to its plain version and to the host formula."""
+    from chip_smoke import fr_scalars, kzg_blobs
+    from lighthouse_tpu_torch.crypto.bls12_381.fields import R
+    from lighthouse_tpu_torch.ops import fr as K8
+
+    n = 64
+    rng = np.random.default_rng(70 if hit is None else 71 + hit)
+    roots = _domain(n)
+    words = K8.words_from_bytes(kzg_blobs(rng, 1, n)[0], n)
+    z = fr_scalars(rng, 1)[0] if hit is None else roots[hit]
+    y = fr_scalars(rng, 1)[0]
+    zy = K8.as_i32(K8.fr_to_words([z, y])).to(cuda)
+    args = (K8.as_i32(words).to(cuda), K8.as_i32(K8.mont_limbs(roots)).to(cuda), zy[0], zy[1])
+    got = _launched(K8.COUNTS, "quotient", lambda: K8.quotient(*args))
+    assert torch.equal(got, K8.quotient_plain(*args))
+    p = K8.fr_from_words(words)
+    assert K8.fr_from_words(got.cpu().numpy()) == [
+        0 if w == z else (pi - y) * pow(w - z, R - 2, R) % R for pi, w in zip(p, roots)
+    ]
+
+
+def test_msm_table_walk_and_fixed_msm_over_the_64_dev_points(cuda):
+    """K9 over the fleet's 64-point dev setup: the table's walk and the
+    table equal to their plain versions, the fixed-base MSM over it (with
+    msm_edge_case's zero scalars, r - 1, a repeated and a negated point)
+    equal to its plain version and to the host MSM."""
+    from chip_smoke import msm_edge_case
+    from lighthouse_tpu_torch.crypto.bls12_381 import FQ, msm, pt_eq
+    from lighthouse_tpu_torch.crypto.kzg import TrustedSetup
+    from lighthouse_tpu_torch.ops import fr as K8
+    from lighthouse_tpu_torch.ops import msm as K9
+
+    rng = np.random.default_rng(64)
+    pts, sc = msm_edge_case(rng, TrustedSetup.insecure_dev(64).g1_lagrange)
+    pt = _g1(pts, cuda)
+    s = K8.as_i32(K8.fr_to_words(sc)).to(cuda)
+    walk = K9.g1_msm_table_walk(pt)
+    plain_walk = K9.g1_msm_table_walk_plain(pt)
+    assert all(torch.equal(a, b) for a, b in zip(walk, plain_walk))
+    table = _launched(K9.COUNTS, "msm_table", lambda: K9.g1_msm_table(pt))
+    plain = K9.g1_msm_table_plain(pt)
+    assert torch.equal(table.xy, plain.xy) and torch.equal(table.inf, plain.inf)
+    got = _launched(K9.COUNTS, "msm", lambda: K9.g1_msm_fixed(table, s))
+    assert torch.equal(got, K9.g1_msm_fixed_plain(plain, s))
+    assert pt_eq(FQ, K2.g1_from_limbs(got.cpu().numpy())[0], msm(FQ, pts, sc))
+
+
+def test_smoke_fleet_verifies_on_the_card(cuda):
+    """chip_smoke phase 15 (a) in this process: the smoke scenario's 3
+    nodes with bls_backend="cuda" partition, heal and converge with
+    finality advancing (the JAX test's bounds), every BLS kernel launched
+    by the fleet's verifies."""
+    from dataclasses import replace
+
+    from chip_smoke import BLS_KERNELS, bls_counts, reset_bls_counts
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.testing.testnet import run_smoke_scenario
+    from lighthouse_tpu_torch.types import minimal_spec
+
+    prev = bls.backend_setting()
+    bls.set_backend("cuda")  # the interop keys are made under it: real pubkeys
+    try:
+        reset_bls_counts()
+        report = run_smoke_scenario(replace(minimal_spec(), altair_fork_epoch=0), MinimalEthSpec, bls_backend="cuda")
+        torch.cuda.synchronize()
+        assert bls.backend_name() == "cuda"
+        launches = bls_counts()
+    finally:
+        bls.set_backend(prev)
+    assert report["recovery_slots"] <= 6 * MinimalEthSpec.SLOTS_PER_EPOCH
+    assert report["recovery_to_finality_s"] > 0
+    assert [k for k in BLS_KERNELS if launches[k] <= 0] == []

@@ -237,6 +237,29 @@ def test_cryptography_loads_only_when_a_noise_transport_is_built():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the adversarial fleet: N nodes through ClientBuilder, the fault plane, the oracle
+FLEET_MODULES = ("testing/testnet.py",)
+
+
+@pytest.mark.parametrize("path", FLEET_MODULES)
+def test_fleet_module_loads_no_jax_reference_or_yaml(path):
+    """The fleet imports neither JAX nor the JAX package, and loading it
+    (with the client, the network and the API it boots) brings in neither,
+    nor `yaml`: chip_smoke.py's fleet process imports it on the card."""
+    assert not _imports(PKG / path) & set(FORBIDDEN)
+    mod = "lighthouse_tpu_torch." + path[: -len(".py")].replace("/", ".")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('yaml',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
